@@ -1,15 +1,15 @@
-"""entropy_coders_tpu — a TPU-native FSE (tANS) entropy codec.
+"""entropy_coders_tpu — an FSE (tANS) entropy codec for GPUs in JAX.
 
 A from-scratch JAX/Pallas framework with the capabilities and on-the-wire
 format of the reference Rust crate ``entropy_coders`` (FSE/tANS replicating
-zstd's encoding scheme), re-designed TPU-first:
+zstd's encoding scheme), laid out for data-parallel devices:
 
 * ``spec``     — exact host-side executable specification (oracle + header
   serialization).
-* ``ops``      — the TPU compute path: vectorized/jitted histogram, table
-  build, and N-way interleaved encode/decode kernels.
+* ``ops``      — the device compute path: vectorized/jitted histogram,
+  table build, and the interleaved and per-lane encode/decode coders.
 * ``frame``    — block container for large buffers (multi-block frames).
-* ``parallel`` — multi-chip sharding over a ``jax.sharding.Mesh``.
+* ``parallel`` — multi-device sharding over a ``jax.sharding.Mesh``.
 * ``native``   — C++ host codec (fast CPU oracle / fallback).
 * ``stream``   — bounded-memory file compression (atomic writes).
 * ``checkpoint`` — compressed pytree checkpoints with per-tensor

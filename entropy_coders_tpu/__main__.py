@@ -1,16 +1,14 @@
-"""Command-line interface: file compression with the TPU container format.
+"""Command-line interface: file compression with the container format.
 
 Usage:
     python -m entropy_coders_tpu compress   <in> <out> [--block-size N]
         [--k N] [--table-log N|auto] [--shared-table] [--no-lanes]
     python -m entropy_coders_tpu decompress <in> <out>
     python -m entropy_coders_tpu stat       <in>
-    python -m entropy_coders_tpu warmup    [--mib N] [--table-log N]
 
 The reference is a library only; this CLI is the framework's end-to-end
-driver for real files (and doubles as a smoke test on any backend — on
-non-TPU backends the Pallas kernels run in interpreter mode via the XLA
-fallback paths).
+driver for real files, on the GPU or (through the plain-JAX coders) the
+CPU.
 """
 
 from __future__ import annotations
@@ -57,25 +55,7 @@ def main(argv=None) -> int:
     s = sub.add_parser("stat")
     s.add_argument("infile")
 
-    w = sub.add_parser(
-        "warmup",
-        help="pre-compile the shipping kernel shapes into the persistent "
-             "compilation cache (fresh-machine cold-start mitigation)")
-    w.add_argument("--mib", type=int, default=64,
-                   help="synthetic corpus size; 64 covers the chunked "
-                        "pipeline's full-chunk shape (default 64)")
-    w.add_argument("--block-size", type=int, default=None)
-    w.add_argument("--k", type=int, default=None)
-    w.add_argument("--table-log", default=None, type=_parse_table_log)
-
     args = p.parse_args(argv)
-
-    import os
-    plat = os.environ.get("ECT_PLATFORM")
-    if plat:  # authoritative backend override (some environments pin
-        # JAX_PLATFORMS via plugin hooks that ignore the env var)
-        import jax
-        jax.config.update("jax_platforms", plat)
 
     from . import frame as F
 
@@ -110,44 +90,6 @@ def main(argv=None) -> int:
         print(f"{n_in} -> {n_out} bytes "
               f"(ratio {n_out/max(n_in,1):.4f}) in {dt:.2f}s",
               file=sys.stderr)
-    elif args.cmd == "warmup":
-        import numpy as np
-
-        from .utils.cache import enable_compilation_cache
-
-        cache_dir = enable_compilation_cache()
-        kw = {}
-        if args.block_size:
-            kw["block_size"] = args.block_size
-        if args.k:
-            kw["k"] = args.k
-        n = args.mib << 20
-        rng = np.random.default_rng(0xF5E)
-        # two corpora so BOTH encode-kernel variants compile: a
-        # small-alphabet one (symbols < 128 halve the transform gather
-        # rows — ops.pl_coder small-alpha fast path) and a full-alphabet
-        # one (text/binary inputs). Zipf keeps all 256 symbols present
-        # yet compressible (uniform bytes would RAW-escape and compile
-        # nothing).
-        small = (rng.integers(0, 1 << 16, n, dtype=np.uint16)
-                 .astype(np.uint8) % 97)
-        full = (rng.zipf(1.3, n) % 256).astype(np.uint8)
-        # kernel compiles are per table_log: cover the logs the default
-        # ("fast", 0.0025) policy actually lands on across corpora
-        # (PERF.md sweep: 8..11), or just the one the user pinned
-        logs = [args.table_log] if args.table_log else [8, 9, 10, 11]
-        t0 = time.perf_counter()
-        for name, data in (("small-alpha", small), ("full-alpha", full)):
-            for L in logs:
-                t1 = time.perf_counter()
-                comp = F.compress(data, table_log=L, **kw)
-                out = F.decompress(comp)
-                assert out == data.tobytes(), "warmup round trip failed"
-                print(f"warmup {name} L={L}: {args.mib} MiB round trip "
-                      f"in {time.perf_counter() - t1:.1f}s",
-                      file=sys.stderr)
-        print(f"warmup done in {time.perf_counter() - t0:.1f}s; "
-              f"persistent cache: {cache_dir}", file=sys.stderr)
     elif args.cmd == "decompress":
         from .stream import decompress_file
 

@@ -1,6 +1,6 @@
 """Compressed pytree checkpoints over the container format.
 
-The natural TPU deployment of this codec is squeezing model state:
+A natural deployment of this codec is squeezing model state:
 ``save_pytree`` flattens a pytree of (jax or numpy) arrays, concatenates
 the leaf bytes, and FSE-compresses them into one container frame behind
 a small JSON manifest; ``load_pytree`` restores the identical tree. The
@@ -8,7 +8,7 @@ reference's "checkpoint" is its frame (SURVEY.md §5 — the histogram
 header fully reconstructs the decode state, reference:
 src/histogram.rs:436-505); this module is the framework-level
 generalization: the artifact IS a frame, so everything the container
-gives — TPU-kernel encode/decode, per-block CRCs, bit packing, range
+gives — device encode/decode, per-block CRCs, bit packing, range
 decode — applies to checkpoints for free.
 
 Random access rides the container's independently-decodable blocks: a
@@ -16,7 +16,7 @@ Random access rides the container's independently-decodable blocks: a
 only the blocks overlapping one tensor's byte range, so restoring a
 single layer from a multi-GiB checkpoint costs O(layer), not O(model).
 
-File layout (little-endian; TPU/x86 hosts):
+File layout (little-endian hosts):
 
     b"FSCK" | u8 version | u8 reserved | u16 reserved
     | u32 manifest_len | manifest (UTF-8 JSON) | container frame

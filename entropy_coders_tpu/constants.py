@@ -18,7 +18,7 @@ def mask(bits: int) -> int:
     """All-ones mask of width ``bits`` (reference: src/lib.rs:15-57).
 
     The reference uses a 33-entry LUT for speed; on the host side a shift
-    is fine, and on TPU the vectorized kernels compute masks with shifts.
+    is fine, and the vectorized device kernels compute masks with shifts.
     """
     return (1 << bits) - 1
 

@@ -1,4 +1,4 @@
-"""TPU block-container codec (format: FORMAT.md).
+"""Block-container codec (format: FORMAT.md).
 
 Splits data into fixed-size blocks; each block is a reference-format FSE
 frame internally (k-way interleave) so the container embeds the
@@ -40,7 +40,7 @@ FLAG_PACKED = 4  # MODE_FSE_PL lane streams bit-packed (no dead bits)
 MODE_FSE = 0
 MODE_RAW = 1
 MODE_RLE = 2
-MODE_FSE_PL = 3  # per-lane streams, Pallas TPU kernels (ops.pl_coder)
+MODE_FSE_PL = 3  # per-lane streams (ops.pl_coder)
 
 DEFAULT_BLOCK_SIZE = 1 << 17
 DEFAULT_K = 1024
@@ -103,12 +103,11 @@ def _blocks_to_syms(blocks: np.ndarray, m: int, R: int, k: int):
 
 
 def _pl_eligible(block_size: int, k: int, log2: int) -> bool:
-    """Whether a full block can take the per-lane-stream Pallas path
-    (MODE_FSE_PL): k a multiple of 128, block divisible into >= 2 bytes per
-    lane, and worst-case lane bit count fits the u16 size field. The full
-    reference table-log range 5..15 is supported (reference:
-    src/fse.rs:103-106); above L=12 the kernels switch to a two-plane
-    symbol transform (ops.pl_coder._sym_transform)."""
+    """Whether a full block can take the per-lane-stream path
+    (MODE_FSE_PL): k a multiple of 128 (the kernel's lane group), block
+    divisible into >= 2 bytes per lane, and worst-case lane bit count
+    fits the u16 size field. The full reference table-log range 5..15 is
+    supported (reference: src/fse.rs:103-106)."""
     if k % 128 != 0 or block_size % k != 0:
         return False
     q = block_size // k
@@ -117,17 +116,13 @@ def _pl_eligible(block_size: int, k: int, log2: int) -> bool:
     return 5 <= log2 <= 15
 
 
-# Flagship default policy for the per-lane path, decided by measurement
-# (policy_sweep.py, round 5 — table in PERF.md "default policy sweep"):
-# per block, start from the reference's ratio-optimal ``optimal_log2``
-# (src/histogram.rs:264-277) and take the smallest table log whose
-# estimated coded size stays within 0.25% (normalize.fast_log2s).
-# Decode cost scales with the 2^L/128 in-kernel gathers, so each -1 of
-# log is ~1.4-2x decode throughput; on the four sweep corpora this
-# policy beat the previous fixed L=10 default on BOTH axes for three
-# corpora (text: -1.1% size; bf16: -0.9% size at 1.4x speed; jsonlog:
-# -0.1% size at 1.4x speed) and tied it on the fourth (geo). The
-# non-lanes (shared-stream) path keeps the reference's fixed default.
+# Default table-log policy of the per-lane path: per block, start from
+# the reference's ratio-optimal ``optimal_log2`` (src/histogram.rs:
+# 264-277) and take the smallest table log whose estimated coded size
+# stays within 0.25% (normalize.fast_log2s). Its speed side — whether a
+# smaller log decodes faster on the GPU — is not measured yet (ROADMAP
+# queue 1 item 6). The shared-stream path keeps the reference's fixed
+# default.
 PL_TABLE_LOG = ("fast", 0.0025)
 
 
@@ -147,7 +142,7 @@ def resolve_shared_table(counts_all, total_len: int, table_log, lanes):
     int64/uint64-exact throughout — aggregated multi-host histograms
     legitimately exceed u32 per-symbol counts past 4 GiB of input."""
     if lanes is None:
-        lanes = jax.default_backend() == "tpu"
+        lanes = PL.lanes_default()
     if table_log is None:
         table_log = PL_TABLE_LOG if lanes else TABLE_LOG_DEFAULT
     counts_all = np.asarray(counts_all)
@@ -175,21 +170,19 @@ def compress(
     checksum: bool = False,
     bit_pack: bool = False,
 ) -> bytes:
-    """Compress ``data`` into a TPU container frame (FORMAT.md).
+    """Compress ``data`` into a container frame (FORMAT.md).
 
-    ``lanes`` selects the per-lane-stream block mode (MODE_FSE_PL, Pallas
-    TPU kernels): None = auto (on TPU backends when eligible), True/False
-    to force. ``table_log`` defaults to PL_TABLE_LOG — the measured
-    ``("fast", 0.0025)`` policy — on the lanes path and TABLE_LOG_DEFAULT
-    otherwise; ``"auto"`` applies the reference's per-block
-    ``optimal_log2`` policy (src/histogram.rs:264-277) — each
-    block gets its own log, and blocks group by (len, log) for the
-    batched kernels. ``"fast"`` biases per-block logs toward decode
-    throughput: the smallest log whose estimated coded size stays
-    within 0.5% of the auto choice's (decode speed roughly doubles per
-    -1 log — normalize.fast_log2s, PERF.md); ``("fast", eps)`` sets that
-    size budget explicitly (e.g. 0.015 admits the L=8 throughput-max
-    point on the bench distribution; the default policy uses 0.0025). ``interpret`` runs the Pallas kernels in
+    ``lanes`` selects the per-lane-stream block mode (MODE_FSE_PL,
+    ops.pl_coder): None = auto (on the GPU when eligible; the
+    shared-stream mode on the CPU), True/False to force. ``table_log``
+    defaults to PL_TABLE_LOG, the ``("fast", 0.0025)`` policy, on the
+    lanes path and TABLE_LOG_DEFAULT otherwise; ``"auto"`` applies the
+    reference's per-block ``optimal_log2`` policy (src/histogram.rs:
+    264-277) — each block gets its own log, and blocks group by (len,
+    log) for the batched coders. ``"fast"`` takes per block the smallest
+    log whose estimated coded size stays within 0.5% of the auto
+    choice's (normalize.fast_log2s); ``("fast", eps)`` sets that size
+    budget explicitly. ``interpret`` runs the per-lane Pallas kernels in
     interpreter mode (for CPU testing). ``checksum`` appends a per-block
     crc32 table, verified on decompress (the reference format has no
     integrity checking — corruption decodes to garbage silently).
@@ -204,9 +197,9 @@ def compress(
     identical header (parallel/multihost.py)."""
     from .utils.cache import enable_compilation_cache
 
-    enable_compilation_cache()  # idempotent; Mosaic compiles are minutes
+    enable_compilation_cache()
     if lanes is None:
-        lanes = jax.default_backend() == "tpu"
+        lanes = PL.lanes_default()
     if table_log is None:
         table_log = PL_TABLE_LOG if lanes else TABLE_LOG_DEFAULT
     data = np.frombuffer(bytes(data), np.uint8) if not isinstance(data, np.ndarray) else np.asarray(data, np.uint8)
@@ -252,11 +245,14 @@ def compress(
     nsym = None
     if full:
         blocks = data[: full * block_size].reshape(full, block_size)
-        # one h2d for the whole input: the device copy feeds both the
-        # batched histogram and (when eligible) the lane encode kernels
-        blocks_dev = jnp.asarray(blocks) if sharding is None else None
+        # one h2d for the whole input (sharded over the mesh when given):
+        # the device copy feeds both the batched histogram and (when
+        # eligible) the lane encode kernels
+        blocks_dev = (_put(blocks, sharding) if sharding is None
+                      or full % sharding.mesh.size == 0 else None)
         counts = np.asarray(histogram_blocks(
-            blocks_dev if blocks_dev is not None else jnp.asarray(blocks)))
+            blocks_dev if blocks_dev is not None
+            else jnp.asarray(blocks)))
         # single-symbol blocks can't be FSE-coded (the reference's
         # normalization rejects table_len == 1, src/histogram.rs:98);
         # they take the RLE escape below.
@@ -441,11 +437,10 @@ def _encode_group_pl(blocks_src, norm_tables, l2, k, shared_table,
                      sections, modes, block_ids, interpret=False,
                      sharding=None, bit_pack=False):
     """Per-lane-stream (MODE_FSE_PL) batched encode of equal-size blocks
-    sharing one table log2, on the Pallas TPU kernels (ops.pl_coder).
-    ``blocks_src`` may be a host or device (B, n) uint8 array; table
-    build, transform packing and data layout all run on device
-    (PL.encode_lanes_norm). With ``sharding`` the block batch shards over
-    the mesh (padded internally; pad results are discarded)."""
+    sharing one table log2 (ops.pl_coder). ``blocks_src`` may be a host
+    or device (B, n) uint8 array (PL.encode_lanes_norm). With
+    ``sharding`` the block batch shards over the mesh (padded
+    internally; pad results are discarded)."""
     B, n = blocks_src.shape
     mesh = sharding.mesh if sharding is not None else None
     R = n // k - 1
@@ -497,7 +492,7 @@ def _encode_group(blocks, norm_tables, log2_arr, k, shared_table,
     placed across the mesh and XLA partitions the whole batched
     encode — each chip encodes its blocks independently (data parallel
     over blocks, no cross-chip communication in the encode itself).
-    With ``lanes``, eligible groups take the per-lane-stream Pallas path
+    With ``lanes``, eligible groups take the per-lane-stream path
     (reading from ``blocks_dev``, the already-device-resident copy of
     ``blocks``, when the caller provides one)."""
     B, n = blocks.shape
@@ -548,7 +543,7 @@ def _encode_group(blocks, norm_tables, log2_arr, k, shared_table,
 
 def _encode_tail(tail, k, table_log, shared_table, s_shared, sections,
                  modes, idx, lanes=False, interpret=False, bit_pack=False):
-    """Encode the ragged last block. Takes the per-lane Pallas path when
+    """Encode the ragged last block. Takes the per-lane path when
     the tail happens to be lane-divisible (same eligibility as full
     blocks), the shared-stream path otherwise. ``s_shared`` is the
     (table, log2) pair of the frame's shared histogram, if any."""
@@ -666,7 +661,7 @@ def _subframe_parts(pf: "_ParsedFrame"):
 
 def decompress(frame: bytes, *, sharding=None, interpret: bool = False,
                start: int = 0, length: int | None = None, out=None):
-    """Decompress a TPU container frame back to bytes.
+    """Decompress a container frame back to bytes.
 
     ``start``/``length`` decode only the blocks overlapping that byte
     range (random access — every block is independently decodable) and
@@ -783,8 +778,7 @@ def _decompress_parsed(pf: "_ParsedFrame", *, sharding=None,
 def _decode_group_pl(items, raw_len, log2, pf, out, out_base,
                      interpret=False, sharding=None):
     """Batched decode of MODE_FSE_PL blocks (per-lane streams) sharing one
-    (raw_len, log2), on the Pallas TPU kernels: decode tables build on
-    device from the histograms (PL.decode_lanes_norm). With ``sharding``
+    (raw_len, log2) (PL.decode_lanes_norm). With ``sharding``
     the batch shards over the mesh (padded internally)."""
     k = pf.k
     if not (TABLE_LOG_MIN <= log2 <= TABLE_LOG_MAX):
@@ -842,14 +836,10 @@ def _decode_group_pl(items, raw_len, log2, pf, out, out_base,
     W = -(-(int(sizes.max()) // 32 + 3) // 16) * 16
 
     def _drain(j0, collect):
-        syms, finals = collect()
-        syms = np.asarray(syms)
-        finals = np.asarray(finals)
-        for jj in range(syms.shape[0]):
-            i = items[j0 + jj][0]
-            o = i * pf.block_size - out_base
-            out[o : o + R * k] = syms[jj].reshape(-1)
-            out[o + R * k : o + raw_len] = finals[jj]
+        blocks = collect()
+        for jj in range(blocks.shape[0]):
+            o = items[j0 + jj][0] * pf.block_size - out_base
+            out[o : o + raw_len] = blocks[jj]
 
     # chunked pipeline (~64 MiB raw per chunk): the host splits + H2Ds
     # every chunk and dispatches its decode kernel asynchronously, then

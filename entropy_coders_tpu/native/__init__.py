@@ -1,11 +1,10 @@
 """C++ host codec bindings (ctypes).
 
 Serial k-way FSE codec with the exact reference wire format — the fast
-host oracle / CPU fallback, and the measured stand-in for the Rust
-baseline (BASELINE.md: the reference's own numbers are unpublished and
-Rust is not in this image).
+host oracle / CPU fallback, and the stand-in for the Rust baseline
+(BASELINE.md: the reference's own numbers are unpublished).
 
-Builds lazily with g++ on first use; ``available()`` reports whether the
+Builds from ``fse_native.cpp`` with g++ on first use; ``available()`` reports whether the
 native library could be built/loaded.
 """
 
@@ -59,6 +58,12 @@ def _load():
         lib.ect_normalize.restype = ctypes.c_int
         lib.ect_normalize.argtypes = [
             ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int32, ctypes.c_void_p,
+        ]
+        lib.ect_encode_lanes.restype = ctypes.c_int
+        lib.ect_encode_lanes.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.ect_lane_split.restype = ctypes.c_int64
         lib.ect_lane_split.argtypes = [
@@ -193,8 +198,8 @@ def build_encode_tables(norm_tables: np.ndarray, log2: int):
     sharing ``log2``: returns ``(table (B, 2^log2) u16, tt_bits (B, 256)
     u32, tt_fs (B, 256) i32)`` — bit-identical to spec.fse.EncodeTable /
     ops.tables.build_encode_table, at host-C++ speed (the frame path
-    builds tables here and ships the tiny packed rows to the device
-    instead of paying the on-device build chain per call — PERF.md)."""
+    builds tables here and ships them to the device instead of running
+    the on-device build chain per call)."""
     lib = _load()
     if lib is None:
         raise RuntimeError(f"native codec unavailable: {_load_error}")
@@ -231,6 +236,32 @@ def build_decode_tables(norm_tables: np.ndarray, log2: int) -> np.ndarray:
     if rc != 0:
         raise ValueError(f"decode table build failed (rc={rc})")
     return packed
+
+
+def encode_lanes(blocks: np.ndarray, norm_tables: np.ndarray, log2: int,
+                 k: int, W: int):
+    """Host per-lane encode (MODE_FSE_PL semantics): ``blocks`` (B, n)
+    uint8 with n = (R+1)*k, one (B, 256) normalized table per block, all
+    at ``log2``. Returns ``(words (B, W, k) u32, sizes (B, k) i32)`` in
+    the layout of ops.pl_coder.encode_lanes — the independent reference
+    its device kernels are checked against."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"native codec unavailable: {_load_error}")
+    src = np.ascontiguousarray(blocks, np.uint8)
+    nt = np.ascontiguousarray(norm_tables, np.int32)
+    B, n = src.shape
+    assert nt.shape == (B, 256)
+    words = np.zeros((B, W, k), np.uint32)
+    sizes = np.zeros((B, k), np.int32)
+    rc = lib.ect_encode_lanes(
+        src.ctypes.data_as(ctypes.c_void_p), B, n, k,
+        nt.ctypes.data_as(ctypes.c_void_p), log2, W,
+        words.ctypes.data_as(ctypes.c_void_p),
+        sizes.ctypes.data_as(ctypes.c_void_p))
+    if rc != 0:
+        raise ValueError(f"per-lane encode failed (rc={rc})")
+    return words, sizes
 
 
 def lane_merge_batch(words: np.ndarray, sizes_bits: np.ndarray,

@@ -5,8 +5,9 @@ on first import of ``entropy_coders_tpu.native``).
 
 Two artifacts:
 
-* ``libfse_native.so`` — the PORTABLE binary (no ``-march``), the one
-  committed to the repo and shipped in wheels. A binary that dlopen
+* ``libfse_native.so`` — the PORTABLE binary (no ``-march``), built
+  from ``fse_native.cpp`` at first use (never committed) and shipped in
+  wheels. A binary that dlopen
   accepts but that uses unsupported vector instructions dies with an
   uncatchable SIGILL at the first call, so anything that can travel
   between machines must be portable.
@@ -28,16 +29,24 @@ LOCAL = Path(__file__).parent / "libfse_native.local.so"
 
 
 def _compile(out: Path, arch: list[str]) -> None:
+    # build beside the target and rename into place: processes that
+    # build concurrently (parallel test workers) never load a partly
+    # written library
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [
         "g++", "-O3", *arch, "-std=c++17", "-shared", "-fPIC",
-        "-fopenmp", "-o", str(out), str(SRC),
+        "-fopenmp", "-o", str(tmp), str(SRC),
     ]
     try:
-        subprocess.run(cmd, check=True, capture_output=True, text=True)
-    except subprocess.CalledProcessError:
-        # toolchains without libgomp: the pragmas degrade to serial code
-        cmd.remove("-fopenmp")
-        subprocess.run(cmd, check=True, capture_output=True, text=True)
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, text=True)
+        except subprocess.CalledProcessError:
+            # toolchains without libgomp: the pragmas degrade to serial
+            cmd.remove("-fopenmp")
+            subprocess.run(cmd, check=True, capture_output=True, text=True)
+        os.replace(tmp, out)
+    finally:
+        tmp.unlink(missing_ok=True)
 
 
 def _fresh(p: Path) -> bool:
@@ -49,7 +58,7 @@ def build(force: bool = False) -> Path:
 
     Preference order: a fresh machine-tuned ``.local.so`` (only ever
     produced on this machine, so it is safe to execute here), else the
-    portable ``.so`` (committed/shipped — safe everywhere), built if
+    portable ``.so`` (shipped in wheels — safe everywhere), built if
     stale or missing. ``ECT_NATIVE_TUNED=1`` builds the tuned local
     binary; ``ECT_NATIVE_PORTABLE=1`` (wheel builds) forces the portable
     target even when a tuned build was requested."""

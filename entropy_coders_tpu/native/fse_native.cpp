@@ -1,12 +1,12 @@
 // Native host codec: serial k-way interleaved FSE (tANS), semantically
 // identical to entropy_coders_tpu.spec (and hence to the reference crate's
-// wire format for k=1,2; reference: /root/reference/src).
+// wire format for k=1,2; reference: the crate's src/).
 //
 // Role in the framework: fast host-side oracle for large-corpus
-// bit-exactness tests, CPU fallback path, fast header parsing for the
-// block container, and the measured stand-in for the Rust baseline on
-// this machine (same algorithm, native code; Rust is not available in
-// this image — see BASELINE.md).
+// bit-exactness tests (including the per-lane reference the device
+// kernels are checked against), CPU fallback path, fast header parsing
+// for the block container, and the stand-in for the Rust baseline (same
+// algorithm, native code — see BASELINE.md).
 //
 // Exposed via a C ABI for ctypes (entropy_coders_tpu/native/__init__.py).
 
@@ -745,6 +745,56 @@ int ect_build_decode_tables(const int32_t* tables /*B x 256*/, int32_t B,
     }
   }
   return 0;
+}
+
+// Per-lane encode (MODE_FSE_PL, ops.pl_coder): lane i of a block of
+// n = (R+1)*k bytes codes bytes {i, i+k, ...} as a reference
+// single-stream payload (reversed consume, first state from the lane's
+// last byte, final state in log2 bits; no header, no marker bit). The
+// host reference the device kernels are checked against. words_out is
+// (B, W, k) u32, zeroed by the caller; sizes_out (B, k) lane bit counts.
+// Returns 0; 1 on bad arguments, 2 on a malformed table, 3 if a lane
+// overflows W rows.
+int ect_encode_lanes(const uint8_t* blocks, int64_t B, int64_t n, int32_t k,
+                     const int32_t* tables /*B x 256*/, int32_t log2,
+                     int32_t W, uint32_t* words_out, int32_t* sizes_out) {
+  if (k < 1 || n % k || n / k < 2 || B < 0 || W < 1 ||
+      log2 < TABLE_LOG_MIN || log2 > TABLE_LOG_MAX)
+    return 1;
+  std::vector<EncTable> ets((size_t)B);
+  for (int64_t b = 0; b < B; b++) {
+    NormHist h;
+    if (!init_norm_hist(tables + (size_t)b * 256, log2, &h)) return 2;
+    build_encode(h, &ets[(size_t)b]);
+  }
+  const int64_t R = n / k - 1;
+  int err = 0;
+#pragma omp parallel reduction(| : err)
+  {
+    std::vector<uint8_t> buf((size_t)W * 4 + 8);
+#pragma omp for collapse(2)
+    for (int64_t b = 0; b < B; b++)
+      for (int32_t i = 0; i < k; i++) {
+        const EncTable& et = ets[(size_t)b];
+        const uint8_t* src = blocks + (size_t)b * n;
+        std::fill(buf.begin(), buf.end(), 0);
+        FastBitWriter w(buf.data());
+        Encoder e;
+        e.init_first(et, src[R * k + i]);
+        for (int64_t t = R - 1; t >= 0; t--) e.encode(et, w, src[t * k + i]);
+        w.write(e.value, et.table_log);
+        size_t bits = w.finish();
+        if ((bits + 31) / 32 > (size_t)W) {
+          err = 1;
+          continue;
+        }
+        uint32_t* col = words_out + (size_t)b * W * k + i;
+        for (size_t j = 0; j < (bits + 31) / 32; j++)
+          std::memcpy(&col[j * (size_t)k], buf.data() + 4 * j, 4);
+        sizes_out[(size_t)b * k + i] = (int32_t)bits;
+      }
+  }
+  return err ? 3 : 0;
 }
 
 // Parse a histogram header. Returns header byte length, 0 on error.

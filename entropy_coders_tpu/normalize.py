@@ -122,16 +122,15 @@ def fast_log2s(counts: np.ndarray, size: int, eps: float = FAST_EPS,
                span: int = FAST_SPAN) -> np.ndarray:
     """Throughput-biased per-block table log (``table_log="fast"``).
 
-    The per-lane decode kernel's cost is dominated by ``2^L/128``
-    per-sublane gathers, so decode throughput roughly doubles per -1 of
-    table log (PERF.md sweep: L=9 is ~1.6x L=10 for +0.24% size on the
-    bench distribution). This policy starts from the reference's
+    A smaller table log means smaller tables and headers; whether it
+    also decodes faster on the GPU is not measured yet (ROADMAP queue 1
+    item 6). This policy starts from the reference's
     ``optimal_log2`` (ratio-optimal; src/histogram.rs:264-277) and takes
     the SMALLEST log within ``span`` of it whose estimated coded size
     (``estimated_bits``) stays within ``eps`` of the optimal log's — the
     cost-model analog of picking the fastest operating point that does
     not meaningfully hurt ratio. No reference analog (it has one fixed
-    default); TPU-first extension."""
+    default)."""
     counts = np.asarray(counts, dtype=np.uint64)
     base = effective_log2(counts, size, "auto")
     lo = np.maximum(np.maximum(base - span, _min_log2s(counts)),

@@ -1,9 +1,9 @@
-"""TPU compute kernels (JAX/XLA, with Pallas kernels for the hot paths).
+"""Device compute path (JAX/XLA, with Pallas kernels for the hot paths).
 
 - ``coder`` — shared-bitstream k-way interleave (XLA; the reference-format
   interop path, bit-exact at k=1,2).
-- ``pl_coder`` — per-lane-stream kernels (Pallas; the flagship throughput
-  path, MODE_FSE_PL).
+- ``pl_coder`` — per-lane-stream coder (a Pallas kernel on the GPU, plain
+  JAX on the CPU; the flagship throughput path, MODE_FSE_PL).
 - ``tables`` / ``histogram`` — device table build and histograms.
 """
 

@@ -1,7 +1,7 @@
-"""TPU compute path: k-way interleaved tANS encode/decode kernels.
+"""Shared-stream path: k-way interleaved tANS encode/decode in XLA.
 
 The reference's hot loops are serial state machines (reference:
-src/lib.rs:127-138,198-207). The TPU inversion: k interleaved streams share
+src/lib.rs:127-138,198-207). The data-parallel inversion: k interleaved streams share
 one bitstream (the reference's own k=2 scheme, src/lib.rs:146-248,
 generalized — see ``spec.codec``), and because all k lane states are known
 simultaneously at every round, per-lane bit counts are known and an

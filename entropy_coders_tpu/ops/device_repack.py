@@ -3,11 +3,10 @@
 The wire format concatenates k per-lane bit streams (byte- or
 bit-aligned); the kernels want the padded ``(W, k)`` word-column layout.
 That repack ships on the HOST (C++ OpenMP ``lane_merge_batch`` /
-``lane_split_batch``, ~1.2 GB/s per core) — PERF.md argues byte-granular
-device compaction is TPU-hostile, but the encoder already does
-variable-length bit packing as a prefix-sum scatter-add
+``lane_split_batch``). The encoder of the shared-stream path already
+does variable-length bit packing as a prefix-sum scatter-add
 (ops/coder.py:110-120), so the same formulation applied to whole lane
-WORDS is the honest device-side candidate (VERDICT r4 item 4):
+WORDS is the device-side candidate:
 
 * merge: every lane word ``words[j, i]`` (32 bits, last word masked)
   lands at bit offset ``lane_off[i] + 32*j`` of the packed stream — two
@@ -16,18 +15,10 @@ WORDS is the honest device-side candidate (VERDICT r4 item 4):
 * split: the inverse is two gathers at the same offsets plus a
   shift-combine.
 
-Both are word-granular (32-bit pieces), not byte-granular — the unit the
-VPU actually moves. Measured on the real chip (round 5, shipping shape:
-8x 16 MiB blocks, k=16384, L=8, 61.4 MB wire; PERF.md "device-side lane
-merge — measured"): device merge 0.17 GB/s, device split 0.19 GB/s,
-bytes exact — vs 0.50 / 0.32 GB/s for the single-core host OpenMP
-repack on the same payloads (0.59 byte-aligned). XLA's TPU scatter-add
-serializes (it cannot prove the duplicate-index adds disjoint) and the
-computed-index gather fares no better; the host path also scales with
-cores while this cannot, so the host repack stays (frame keeps it).
-The module remains as the measured negative result, with CPU-verified
-byte-exactness tests (tests/test_device_repack.py) so the formulation
-is re-runnable when a future XLA changes the scatter lowering.
+Both are word-granular (32-bit pieces), not byte-granular. The frame
+path does not use this module: its speed on the GPU is not measured,
+and the host repack stays until it is (ROADMAP, reach item 3). Its
+byte-exactness is pinned on the CPU by tests/test_device_repack.py.
 """
 
 from __future__ import annotations

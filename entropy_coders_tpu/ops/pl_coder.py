@@ -1,34 +1,36 @@
-"""Pallas TPU kernels: per-lane-stream tANS encode/decode (the flagship path).
+"""Per-lane-stream tANS encode/decode (MODE_FSE_PL, the flagship path).
 
-Design (TPU-first, see README / FORMAT.md). The reference's decode loop is a
-serial state machine (reference: src/lib.rs:198-207, src/fse.rs:363-373). The
-TPU inversion used here goes beyond the shared-bitstream interleave of
-``ops.coder``: each of k lanes (k = S*128, thousands) owns its *own* bit
-stream — lane i codes the byte subsequence {i, i+k, i+2k, ...} as exactly a
-reference-format single-stream FSE payload (reversed LSB-first bit stack,
-initial state folding the lane's last byte, final state in table_log bits —
-reference: src/lib.rs:112-143 semantics per lane). All lanes advance in
-lockstep, one symbol per round, fully vectorized. Key mechanics:
+Each of k lanes (k a multiple of 128) owns its own bit stream: lane i
+codes the byte subsequence {i, i+k, i+2k, ...} of its block as exactly a
+reference-format single-stream FSE payload (reversed LSB-first bit
+stack, initial state folding the lane's last byte, final state in
+table_log bits — reference: src/lib.rs:112-143 semantics per lane). All
+lanes advance one symbol per round; a block of n = (R+1)*k bytes takes R
+rounds plus the folded last byte.
 
-* the 2^L-entry tANS table lookup is HI-way ``take_along_axis`` lane
-  gathers (Mosaic's native per-sublane dynamic gather; state = hi*128+lo,
-  gather each 128-wide hi-row at ``lo`` and select by ``hi``) — the packed
-  u32 entries ride the gather whole, no decomposition needed;
-* bit I/O goes through a per-lane 64-bit register window (two i32 regs)
-  over the lane's word column; the window refills from an 8-register
-  chunk (the octo-chunk below), so the only memory-indexed operation is
-  ONE pass over the (W, S, 128) stream array every P_REFILL grid steps;
-* the kernel is grid-pipelined: grid = (blocks, round-chunks); raw-symbol
-  tiles stream HBM<->VMEM via BlockSpec index maps while per-lane states,
-  cursors and window registers live in VMEM scratch carried across steps.
+One round step (``_dec_round`` / ``_enc_round``) has two drivers,
+chosen by platform (``_impl``):
+
+* a Pallas kernel on the Triton route — one program per (block, group
+  of ``LANES`` lanes), one lane per thread. The round loop runs inside
+  the kernel, so each lane's state, bit cursor and 64-bit bit window
+  (two i32 registers) stay in registers for all R rounds. The flat
+  2^L-entry tables and the lane-interleaved (W, k) word array are read
+  with per-lane indexed loads; encode flushes each full 32-bit word to
+  its lane's own column, so no two lanes share a word and no store
+  needs an atomic;
+* the plain-JAX version — the same step over every lane at once in a
+  ``lax.fori_loop``, with ``jnp.take_along_axis`` gathers. It is the
+  CPU path and the reference the kernel is tested against.
 
 Exact-semantics contract: each lane's bit stream is bit-identical to the
 reference encoder run on that lane's subsequence (enforced by
 tests/test_pl_coder.py against ``spec``).
 
-Word/bit addressing: bit j of a lane's stream lives in word j>>5 at position
-j&31 (LSB-first, same as the reference's BitStackWriter byte layout,
-reference: src/bitstream/writer.rs:177-178).
+Word/bit addressing: bit j of a lane's stream lives in word j>>5 at
+position j&31 (LSB-first, same as the reference's BitStackWriter byte
+layout, reference: src/bitstream/writer.rs:177-178); word w of lane i
+of a block sits at flat index w*k + i.
 """
 
 from __future__ import annotations
@@ -40,14 +42,13 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from .tables import build_decode_table, build_encode_table
 
 __all__ = [
     "decode_lanes",
     "decode_lanes_norm",
-    "decode_table_rows",
     "encode_lanes",
     "encode_lanes_norm",
     "encode_w_bound",
@@ -55,36 +56,10 @@ __all__ = [
     "lane_merge",
     "lane_split_bits",
     "lane_merge_bits",
-    "upack_ok",
-    "upack_ok_packed",
 ]
 
-def _pick_e(L: int) -> int:
-    """Rounds per grid step: the register-window bit I/O guarantees one
-    window slide per epoch covers E*L bits, requiring E*L <= 32 — E=3
-    for L <= 10 (the flagship default), E=2 up to L=15. Larger unrolls
-    blow up Mosaic compile time without helping steady state."""
-    return 3 if 3 * L <= 32 else 2
-
-
-def _pick_p(e: int, L: int) -> int:
-    # chunk sizing: slides/flushes between refetches, ceil(P*E*L/32), must
-    # fit the 6 spare chunk rows -> P*E*L <= 192
-    return max(1, min(P_REFILL, 192 // (e * L)))
-
-# Octo-chunk refill: the 64-bit decode window refills from an 8-register
-# chunk holding 8 consecutive rows [b, b+8) of each lane's word column
-# (register j holds the row congruent to j mod 8, so selection is by
-# wb & 7). The chunk is re-fetched from the (W,S,128) stream array only
-# every P_REFILL grid steps, and the fetch costs exactly ONE pass over the
-# array regardless of per-lane bases: with words viewed as (W/8, 8, S,
-# 128), the row with residue j is found by one masked reduction over the
-# j-slice. Sizing: slides between refetches <= ceil(P*E*L/32) must fit
-# the 6 rows below the window -> P*E*L <= 192 (_pick_p); P_REFILL is the
-# upper bound.
-P_REFILL = 8
-
-_CP = pltpu.CompilerParams(vmem_limit_bytes=100 * 1024 * 1024)
+LANES = 128  # lanes per kernel program: one per thread of 4 warps
+_TRITON = plt.CompilerParams(num_warps=LANES // 32)
 
 
 def _cdiv(a, b):
@@ -96,1392 +71,487 @@ def _shr_u(x, n):
 
 
 # ---------------------------------------------------------------------------
-# Host-side table preparation
+# The round step, shared by the kernel and the plain-JAX version. Lane
+# state is a tuple (state, c, wb, blo, bhi): the tANS state, the bit
+# cursor, and a 64-bit window over words wb (blo) and wb+1 (bhi) of the
+# lane's column, kept so that c - 32*wb lies in [0, 32). ``word(row,
+# mask)`` reads row ``row`` of each lane's column (0 where masked or out
+# of range); ``entry``/``sym_tt``/``nxt`` are per-lane table lookups.
 # ---------------------------------------------------------------------------
 
 
-def pack_enc_table_rows(table, tt_bits, tt_fs, L: int, small: bool = False):
-    """Host-side encode-table packing into in-kernel gather rows:
-    ``(symbol-transform rows, pair-packed next-state rows)``. The single
-    normative packing (the device analog is ``_pack_symt_dev``; the
-    in-kernel unpack is ``_sym_transform``):
-
-    * L <= 10: tt_bits directly — tb(20b) | fs+2^L (L+1 bits);
-    * L <= 12: mb(4b) | min_state_plus(14b) | fs+4096(13b);
-    * L >= 13: two planes, A = mb(5b)|fs+2^17(18b), B = msp(17b).
-
-    ``small`` (small-alphabet fast path): when every coded symbol is
-    < 128 (table_len <= 128 — all ASCII text, and the bench
-    distribution), each transform plane packs into ONE 128-entry gather
-    row instead of two, cutting the per-round gather count (the encode
-    kernel is gather-issue-bound; PERF.md). The caller asserts the
-    alphabet bound; symbols >= 128 have count 0 and never appear in a
-    valid stream.
-
-    Thin per-block wrapper over the batched packers (_pack_symt_np /
-    _stt_rows_np — the single normative host copy; the asserts guarding
-    a mispacked table live there)."""
-    symt = _pack_symt_np(np.asarray(tt_bits)[None],
-                         np.asarray(tt_fs)[None], L, small)[0]
-    stt = _stt_rows_np(np.asarray(table)[None])[0]
-    return symt, stt
+def _extract(lo, hi, off, nb):
+    """Bits [off, off+nb) of the 64-bit pair (hi:lo); off in [0, 32),
+    nb in [0, 16]. (hi<<1)<<(31-off) == hi<<(32-off) but is defined at
+    off == 0 (no shift reaches 32)."""
+    x = _shr_u(lo, off) | lax.shift_left(lax.shift_left(hi, 1), 31 - off)
+    return x & (lax.shift_left(jnp.int32(1), nb) - 1)
 
 
-def upack_ok(norm_tables: np.ndarray, L: int) -> bool:
-    """Batch-wide eligibility for the u-packed decode layout
-    (decode_table_rows ``small``). The packed entry is sym(7b) | u(9b),
-    so the condition is L-independent (round 5 generalized it from the
-    original L <= 9 special case): every coded symbol < 128 (count 0
-    above 127) and every spread-source state u < 512. u ranges over
-    [count, 2*count) per symbol, so u < 512 <=> max normalized count
-    <= 256 — no symbol holding more than 2^(L-8) -th of the table. At
-    L <= 8 both bounds are structural (the reference's table_len clamp
-    re-logs any >128-symbol alphabet to L >= 9, src/histogram.rs:96-98,
-    and counts <= 2^L <= 256); at L=9 the count bound is "no majority
-    symbol"; at L=10 "no symbol over a quarter of the table" — which
-    the bench geometric distribution satisfies (max ~205/1024)."""
-    nt = np.asarray(norm_tables)
-    if nt[:, 128:].any():
-        return False
-    return L <= 8 or int(nt.max()) <= 256
+def _dec_init(sizes, L, word):
+    """Open each lane at its top: the cursor starts L bits below the end
+    and the first state is those L bits (reference src/fse.rs:363-373)."""
+    c = sizes - L
+    wb = c >> 5  # floor: a corrupt size < L still keeps c - 32*wb >= 0
+    blo, bhi = word(wb), word(wb + 1)
+    return _extract(blo, bhi, c - wb * 32, L), c, wb, blo, bhi
 
 
-def upack_ok_packed(packed_tables, L: int) -> bool:
-    """``upack_ok`` from packed decode tables (sym<<24|nb<<16|base):
-    syms < 128 and every spread-source state u = (base + 2^L) >> nb
-    < 512 (the 9-bit u field; L-independent, see upack_ok)."""
-    for p in packed_tables:
-        pk = np.asarray(p, np.uint32).astype(np.int64)
-        if int(pk.max() >> 24) >= 128:
-            return False
-        u = ((pk & 0xFFFF) + (1 << L)) >> ((pk >> 16) & 0xFF)
-        if int(u.max()) >= 512:
-            return False
-    return True
-
-
-def decode_table_rows(packed: np.ndarray, L: int,
-                      small: bool = False) -> np.ndarray:
-    """Decode-table entries (2^L,) u32 (sym<<24|nb<<16|base) -> gather
-    rows for the decode kernel. For L <= 12 the entries split into
-    (nb<<12|base) u16 PAIRS and sym QUADS packed per i32 word — 3/4 the
-    gather rows of the flat layout (nb <= 12 fits 4 bits, base < 2^12);
-    above L=12 base needs more bits and the flat one-entry-per-word
-    layout is used. ``small`` (u-pack eligibility, see ``upack_ok``):
-    the u-packed layout — sym(7b) | u(9b) u16 pairs where
-    u = (base + 2^L) >> nb is the spread-source state, from which the
-    kernel recomputes nb = L - ilog2(u) and base = (u << nb) - 2^L.
-    It cuts the gather rows vs the split layout — to 1/2 at L <= 9
-    (1 row at L=8: measured 63.8 -> 74.9 GB/s on the bench shape;
-    2 rows at L=9) — and, since round 5 generalized the eligibility to
-    any L with max count <= 256, to 2/3 at L >= 10 with the whole
-    off-path quad (symbol) gather gone. Callers must apply one
-    batch-wide ``small`` to every block of a fused/batched call (the
-    layouts have different shapes). Thin per-block wrapper over the
-    batched ``_dec_rows_np`` (the single normative host copy)."""
-    return _dec_rows_np(np.asarray(packed)[None], L, small)[0]
-
-
-# ---------------------------------------------------------------------------
-# In-kernel primitives (operate on concrete arrays, not refs)
-# ---------------------------------------------------------------------------
-
-
-def _gather_rows(tbl, idx, hi_n, S):
-    """Gather tbl[idx] where tbl is (hi_n, St, 128) int32 rows of
-    2^L-entry tables (St = S, or 1 for a single shared table) and idx is
-    (S, 128) int32 in [0, hi_n*128): HI lane gathers, one per row,
-    selected by the high bits. Mosaic lowers take_along_axis to its
-    native per-sublane dynamic gather — and since the gather is
-    per-sublane-row, each sublane row s can carry a DIFFERENT table
-    (tbl[h, s]): that is how fused superblocks give every 128-lane group
-    its own block's table for free. With St = 1 the row broadcast keeps
-    the table register-resident (measurably faster when unfused)."""
-    lo = idx & 127
-    hi = _shr_u(idx, 7)
-    acc = jnp.zeros((S, 128), jnp.int32)
-    for h in range(hi_n):
-        row = tbl[h]
-        if row.shape[0] != S:
-            row = jnp.broadcast_to(row, (S, 128))
-        g = jnp.take_along_axis(row, lo, axis=1)
-        acc = jnp.where(hi == h, g, acc) if hi_n > 1 else g
-    return acc
-
-
-def _fetch_chunk(words8, b, S, qbase=0):
-    """Fetch the 8 consecutive rows [b, b+8) of each lane's word column in
-    ONE pass over the stream array. ``words8`` is the (W/8, 8, S, 128)
-    view (or a (QW, 8, S, 128) window of it starting at q-row ``qbase``);
-    ``b`` is the per-lane base row. Returns ch, a list of 8 (S,128)
-    arrays where ch[j] holds the row congruent to j mod 8 (i.e. row
-    b + ((j - b) & 7)); rows outside the view read as zero."""
-    W8 = words8.shape[0]
-    qrows = lax.broadcasted_iota(jnp.int32, (W8, S, 128), 0) + qbase
-    ch = []
-    for j in range(8):
-        rj = b + ((j - b) & 7)
-        qj = rj >> 3  # arithmetic: negative rows -> -1, never matches
-        ch.append(jnp.sum(
-            jnp.where(qrows == qj[None], words8[:, j], 0), axis=0))
-    return ch
-
-
-# Windowed refill/dump: per-lane chunk rows [b, b+8) span at most 2
-# q-rows per lane, and lane cursors diverge slowly (bits/symbol variance
-# accumulates ~sqrt(R)), so at refill time the whole fleet's rows almost
-# always fit a few q-rows. Reading/writing only a dynamically-sliced
-# REFILL_QW-q-row window instead of all W/8 cuts the dominant refill
-# traffic (the full scan costs W*S*128*4 bytes every P_REFILL grid
-# steps); a full-scan fallback handles the rare wide-spread refill, so
-# correctness never depends on the divergence bound.
-REFILL_QW = 4
-
-
-def _chunk_window(b, W8, QW):
-    """(start q-row s, wide?) for a window covering every lane's chunk
-    rows [b, b+8): wide means the spread does not fit QW q-rows and the
-    caller must fall back to the full scan."""
-    qlo = b >> 3
-    qhi = (b + 7) >> 3
-    mn0 = jnp.maximum(jnp.min(qlo), 0)  # negative rows read as zero
-    wide = (jnp.max(qhi) - mn0) >= QW
-    return jnp.clip(mn0, 0, W8 - QW), wide
-
-
-def _chunk_select(ch, row):
-    """Select the register holding ``row`` (must lie in the chunk's [b,
-    b+8) range) — register index is row & 7."""
-    d = row & 7
-    acc = ch[0]
-    for j in range(1, 8):
-        acc = jnp.where(d == j, ch[j], acc)
-    return acc
-
-
-def _extract(a, b, off, nb):
-    """Bits [off, off+nb) of the little-endian 64-bit pair (b:a), a = low
-    word; off in [0,32), nb in [0,16]. (b<<1)<<(31-off) == b<<(32-off) but
-    is well-defined at off == 0."""
-    lo = _shr_u(a, off)
-    hi = lax.shift_left(lax.shift_left(b, 1), 31 - off)
-    mask = lax.shift_left(jnp.int32(1), nb) - 1
-    return (lo | hi) & mask
-
-
-def _read_window(blo, bhi, off, nb):
-    """Bits [off, off+nb) of the 64-bit register window (bhi:blo); off in
-    [0, 64-nb]. When off >= 32 the read sits entirely in bhi (callers
-    guarantee off+nb <= 64), so _extract's b-term is masked out anyway."""
-    a = jnp.where(off >= 32, bhi, blo)
-    return _extract(a, bhi, off & 31, nb)
-
-
-# ---------------------------------------------------------------------------
-# Decode kernel
-# ---------------------------------------------------------------------------
-
-
-def _decode_kernel(words_ref, sizes_ref, tbl_ref, syms_ref,
-                   finals_ref, err_ref,
-                   state_s, cur_s, wb_s, blo_s, bhi_s, ch_s,
-                   *, S, W, L, R, G, hi_n, E, p_refill):
-    r = pl.program_id(1)
-    tbl = tbl_ref[0]
-
-    def words8():
-        return words_ref[0].reshape(W // 8, 8, S, 128)
-
-    def _entry(states):
-        """(nb, base, sym) for each lane's state. hi_n == 2^L/256 rows
-        is the u-packed layout (decode_table_rows ``small`` /
-        ``upack_ok``; L-independent since round 5): sym(7b)|u(9b) u16
-        pairs at 1/2 (L <= 9) to 2/3 (L >= 10) of the split layout's
-        gather rows, and NO off-path quad gather — nb and base are
-        recomputed from the spread-source state u (nb = L - ilog2(u)
-        via the f32 exponent, exact for u < 2^24; base = (u << nb) -
-        2^L). L <= 12 otherwise uses the split pair/quad table layout:
-        (nb<<12|base) u16 pairs then sym quads — 3/4 the gather rows of
-        the flat form."""
-        hu = max((1 << L) // 256, 1)
-        if hi_n == hu:
-            v = _gather_rows(tbl, _shr_u(states, 1), hu, S)
-            half = jnp.where((states & 1) == 1, _shr_u(v, 16),
-                             v & 0xFFFF)
-            sym = _shr_u(half, 9)
-            u = half & 0x1FF
-            e = _shr_u(lax.bitcast_convert_type(
-                u.astype(jnp.float32), jnp.int32), 23) - 127
-            nb = L - e
-            base = lax.shift_left(u, nb) - (1 << L)
-            return nb, base, sym
-        if L <= 12:
-            h2 = max((1 << L) // 256, 1)
-            h4 = max((1 << L) // 512, 1)
-            vp = _gather_rows(tbl[:h2], _shr_u(states, 1), h2, S)
-            half = jnp.where((states & 1) == 1, _shr_u(vp, 16),
-                             vp & 0xFFFF)
-            nb = _shr_u(half, 12)
-            base = half & 0xFFF
-            vq = _gather_rows(tbl[h2:], _shr_u(states, 2), h4, S)
-            sym = _shr_u(vq, lax.shift_left(states & 3, 3)) & 0xFF
-            return nb, base, sym
-        pk = _gather_rows(tbl, states, hi_n, S)
-        return _shr_u(pk, 16) & 0xFF, pk & 0xFFFF, _shr_u(pk, 24) & 0xFF
-
-    @pl.when(r == 0)
-    def _init_cursors():
-        c = sizes_ref[0] - L
-        cur_s[:] = c
-        wb_s[:] = _shr_u(jnp.maximum(c, 0), 5)
-
-    @pl.when(r % p_refill == 0)
-    def _refetch():
-        # re-center the chunk on the current window: rows [wb-6, wb+2)
-        b = wb_s[:] - 6
-        if W // 8 > REFILL_QW:
-            s, wide = _chunk_window(b, W // 8, REFILL_QW)
-
-            @pl.when(jnp.logical_not(wide))
-            def _narrow():
-                sl = words_ref[0, pl.ds(s * 8, REFILL_QW * 8)].reshape(
-                    REFILL_QW, 8, S, 128)
-                ch = _fetch_chunk(sl, b, S, qbase=s)
-                for j in range(8):
-                    ch_s[j] = ch[j]
-
-            @pl.when(wide)
-            def _wide():
-                ch = _fetch_chunk(words8(), b, S)
-                for j in range(8):
-                    ch_s[j] = ch[j]
-        else:
-            ch = _fetch_chunk(words8(), b, S)
-            for j in range(8):
-                ch_s[j] = ch[j]
-
-    @pl.when(r == 0)
-    def _init_window():
-        c, wb = cur_s[:], wb_s[:]
-        ch = [ch_s[j] for j in range(8)]
-        blo = _chunk_select(ch, wb)
-        bhi = _chunk_select(ch, wb + 1)
-        state_s[:] = _read_window(blo, bhi, c - wb * 32,
-                                  jnp.full((S, 128), L, jnp.int32))
-        blo_s[:] = blo
-        bhi_s[:] = bhi
-
-    states, c = state_s[:], cur_s[:]
-    wb, blo, bhi = wb_s[:], blo_s[:], bhi_s[:]
-    ch = [ch_s[j] for j in range(8)]
-
-    # one conditional window slide per epoch keeps >= E*L bits readable;
-    # the new row comes from the chunk registers, not memory
-    slide = (c - wb * 32) < E * L
-    wb2 = wb - 1
-    nv = _chunk_select(ch, wb2)
+def _dec_round(lane, entry, word):
+    """Emit each lane's symbol and step its state: read nb bits below
+    the cursor. Packed entries are sym<<24 | nb<<16 | base. nb < 32, so
+    one window slide per round keeps the invariant."""
+    state, c, wb, blo, bhi = lane
+    e = entry(state)
+    nb = _shr_u(e, 16) & 0xFF
+    c = c - nb
+    slide = c < wb * 32
+    wb = jnp.where(slide, wb - 1, wb)
+    nv = word(wb, slide)
     bhi = jnp.where(slide, blo, bhi)
     blo = jnp.where(slide, nv, blo)
-    wb = jnp.where(slide, wb2, wb)
-
-    # when R % E == 0 every (r, e) round is real and the tail masking
-    # below is provably dead — skip it at compile time (the shipping
-    # 16 MiB/k=16384 config has R=1023, E=3: exact)
-    exact = R % E == 0
-    for e in range(E):
-        nb, base, sym = _entry(states)
-        if not exact:
-            active = (r * E + e) < R
-            nb = jnp.where(active, nb, 0)
-        c = c - nb
-        low = _read_window(blo, bhi, c - wb * 32, nb)
-        ns = base + low
-        states = ns if exact else jnp.where(active, ns, states)
-        syms_ref[0, e] = sym.astype(jnp.uint8)
-
-    state_s[:], cur_s[:] = states, c
-    wb_s[:], blo_s[:], bhi_s[:] = wb, blo, bhi
-
-    @pl.when(r == G - 1)
-    def _fin():
-        _, _, sym = _entry(states)
-        finals_ref[0] = sym
-        err_ref[0, 0, 0] = jnp.sum(jnp.abs(c))
+    state = (e & 0xFFFF) + _extract(blo, bhi, c - wb * 32, nb)
+    return _shr_u(e, 24), (state, c, wb, blo, bhi)
 
 
-@functools.partial(jax.jit, static_argnames=("S", "W", "L", "R", "interpret",
-                                              "p_refill", "e_rounds"))
-def _decode_call(words, sizes, tbl, *, S, W, L, R, interpret=False,
-                 p_refill=None, e_rounds=None):
-    B = words.shape[0]
-    assert W % 8 == 0, "W must be a multiple of 8 (octo-chunk layout)"
-    # table rows: the split pair/quad layout (L <= 12) has
-    # hi_n/2 + hi_n/4 rows, the flat layout (L >= 13) 2^L/128; use the
-    # array's own count so the BlockSpec never over- or under-claims
-    hi_n = tbl.shape[1]
-    # u-packed rows make rounds cheap enough that the E=4 unroll wins
-    # (the 32-bit window budget's limit, 4*L <= 32): measured 78.1 ->
-    # 88.6 GB/s at the L=8 bench shape (round 5; E=4 measured SLOWER on
-    # the pre-u-pack split layout — PERF.md). Split layouts keep E=3.
-    upk = hi_n == max(1, (1 << L) >> 8)
-    E = e_rounds or (4 if (upk and 4 * L <= 32) else _pick_e(L))
-    if p_refill is None:
-        p_refill = _pick_p(E, L)
-    G = _cdiv(R, E)
-    kern = functools.partial(_decode_kernel, S=S, W=W, L=L, R=R, G=G,
-                             hi_n=hi_n, E=E, p_refill=p_refill)
-    scr = pltpu.VMEM((S, 128), jnp.int32)
-    syms, finals, err = pl.pallas_call(
-        kern,
-        grid=(B, G),
-        in_specs=[
-            pl.BlockSpec((1, W, S, 128), lambda b, r: (b, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, S, 128), lambda b, r: (b, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, hi_n, tbl.shape[2], 128),
-                         lambda b, r: (b, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, E, S, 128), lambda b, r: (b, r, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, S, 128), lambda b, r: (b, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, 1), lambda b, r: (b, 0, 0),
-                         memory_space=pltpu.SMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((B, G * E, S, 128), jnp.uint8),
-            jax.ShapeDtypeStruct((B, S, 128), jnp.int32),
-            jax.ShapeDtypeStruct((B, 1, 1), jnp.int32),
-        ],
-        scratch_shapes=[scr, scr, scr, scr, scr,
-                        pltpu.VMEM((8, S, 128), jnp.int32)],
-        compiler_params=_CP,
+def _enc_init(sym, sym_tt, nxt):
+    """new_first_symbol (reference: src/fse.rs:210-218); floor+1 form:
+    identical to the reference for table_log <= 14, well-defined at 15
+    where the reference underflows (spec.fse Encoder docstring)."""
+    tb, fs = sym_tt(sym)
+    b0 = _shr_u(tb, 16) + 1
+    state = nxt(_shr_u(lax.shift_left(b0, 16) - tb, b0) + fs)
+    z = jnp.zeros_like(state)
+    return state, z, z, z, z
+
+
+def _put(lane, val, nbits):
+    """Append ``nbits`` bits of ``val`` at the cursor (c - 32*wb < 32,
+    nbits <= 16, so they land in the window)."""
+    state, c, wb, blo, bhi = lane
+    off = c - wb * 32
+    blo = blo | lax.shift_left(val, off)
+    bhi = bhi | _shr_u(_shr_u(val, 1), 31 - off)
+    return state, c + nbits, wb, blo, bhi
+
+
+def _enc_round(lane, sym, sym_tt, nxt):
+    """Encode one symbol (reference src/fse.rs:226-246). Returns the new
+    lane state and (row, word, flush): when the window's low word filled,
+    the caller stores ``word`` at row ``row`` of the lane's column."""
+    state = lane[0]
+    tb, fs = sym_tt(sym)
+    nbits = _shr_u(tb + state, 16)
+    val = state & (lax.shift_left(jnp.int32(1), nbits) - 1)
+    lane = _put((nxt(_shr_u(state, nbits) + fs),) + lane[1:], val, nbits)
+    state, c, wb, blo, bhi = lane
+    flush = c - wb * 32 >= 32
+    new = (state, c, jnp.where(flush, wb + 1, wb),
+           jnp.where(flush, bhi, blo), jnp.where(flush, 0, bhi))
+    return new, (wb, blo, flush)
+
+
+def _enc_finish(lane, L):
+    """Append the final state's low L bits (reference src/fse.rs:248-250).
+    Returns (wb, blo, bhi, size): both window words go to rows wb, wb+1."""
+    lane = _put(lane, lane[0] & ((1 << L) - 1), L)
+    _, c, wb, blo, bhi = lane
+    return wb, blo, bhi, c
+
+
+# ---------------------------------------------------------------------------
+# Pallas kernels (Triton route)
+# ---------------------------------------------------------------------------
+
+
+def _lane_ids():
+    return pl.program_id(1) * LANES + lax.iota(jnp.int32, LANES)
+
+
+def _decode_kernel(words_ref, sizes_ref, tbl_ref, out_ref, cur_ref, *,
+                   k, W, L, R):
+    b, lane = pl.program_id(0), _lane_ids()
+
+    def word(row, mask=True):
+        ok = (row >= 0) & (row < W) & mask
+        return plt.load(words_ref.at[b, jnp.clip(row, 0, W - 1) * k + lane],
+                        mask=ok, other=0)
+
+    def entry(s):
+        return tbl_ref[b, s]
+
+    def body(t, st):
+        sym, st = _dec_round(st, entry, word)
+        out_ref[b, t * k + lane] = sym.astype(jnp.uint8)
+        return st
+
+    st = lax.fori_loop(0, R, body, _dec_init(sizes_ref[b, lane], L, word))
+    out_ref[b, R * k + lane] = _shr_u(entry(st[0]), 24).astype(jnp.uint8)
+    cur_ref[b, lane] = st[1]
+
+
+def _encode_kernel(blocks_ref, ttb_ref, ttf_ref, stt_ref, words_ref,
+                   sizes_ref, *, k, W, L, R):
+    b, lane = pl.program_id(0), _lane_ids()
+
+    def sym_at(t):
+        return blocks_ref[b, t * k + lane].astype(jnp.int32)
+
+    def sym_tt(s):
+        return ttb_ref[b, s], ttf_ref[b, s]
+
+    def nxt(i):
+        return stt_ref[b, i]
+
+    def store(row, val, mask=True):
+        plt.store(words_ref.at[b, jnp.clip(row, 0, W - 1) * k + lane], val,
+                  mask=(row < W) & mask)
+
+    def body(j, st):
+        # rounds are consumed in reverse raw order (reference
+        # src/lib.rs:120)
+        st, (row, val, flush) = _enc_round(st, sym_at(R - 1 - j), sym_tt,
+                                           nxt)
+        store(row, val, flush)
+        return st
+
+    st = lax.fori_loop(0, R, body, _enc_init(sym_at(R), sym_tt, nxt))
+    wb, blo, bhi, size = _enc_finish(st, L)
+    store(wb, blo)
+    store(wb + 1, bhi)
+    sizes_ref[b, lane] = size
+
+
+def _grid_call(kernel, out_shape, args, *, k, interpret, **kw):
+    B = args[0].shape[0]
+    return pl.pallas_call(
+        functools.partial(kernel, k=k, **kw),
+        grid=(B, k // LANES),
+        out_shape=out_shape,
+        compiler_params=_TRITON,
+        backend="triton",
         interpret=interpret,
-    )(words, sizes, tbl)
-    return syms, finals, err
+        name=kernel.__name__.strip("_"),
+    )(*args)
 
 
-def _shard_over_blocks(fn, mesh, n_in):
-    """Wrap ``fn`` in a shard_map that partitions every input and output
-    over the mesh's first axis (data parallel over blocks: each device
-    runs the pallas kernel on its block shard; no collectives)."""
-    from jax.sharding import PartitionSpec
+# ---------------------------------------------------------------------------
+# Plain-JAX version: the same round step over all lanes at once
+# ---------------------------------------------------------------------------
+
+
+def _take(tbl, idx):
+    return jnp.take_along_axis(tbl, idx, axis=1)
+
+
+def _decode_xla(words, sizes, tbl, *, k, W, L, R):
+    B = words.shape[0]
+    lane = jnp.arange(k, dtype=jnp.int32)[None]
+
+    def word(row, mask=True):
+        ok = (row >= 0) & (row < W) & mask
+        return jnp.where(ok, _take(words, jnp.clip(row, 0, W - 1) * k + lane),
+                         0)
+
+    def entry(s):
+        return _take(tbl, s)
+
+    def body(t, carry):
+        st, out = carry
+        sym, st = _dec_round(st, entry, word)
+        out = lax.dynamic_update_slice_in_dim(
+            out, sym.astype(jnp.uint8)[:, None], t, axis=1)
+        return st, out
+
+    out = jnp.zeros((B, R + 1, k), jnp.uint8)
+    st, out = lax.fori_loop(0, R, body,
+                            (_dec_init(sizes, L, word), out))
+    out = out.at[:, R].set(_shr_u(entry(st[0]), 24).astype(jnp.uint8))
+    return out.reshape(B, -1), st[1]
+
+
+def _encode_xla(blocks, ttb, ttf, stt, *, k, W, L, R):
+    B = blocks.shape[0]
+    lane = jnp.arange(k, dtype=jnp.int32)[None]
+    bidx = jnp.arange(B)[:, None]
+    syms = blocks.reshape(B, R + 1, k).astype(jnp.int32)
+
+    def sym_tt(s):
+        return _take(ttb, s), _take(ttf, s)
+
+    def nxt(i):
+        return _take(stt, i)
+
+    def store(words, row, val, mask=True):
+        # masked lanes scatter out of range, which mode="drop" discards
+        idx = jnp.where((row < W) & mask, row * k + lane, W * k)
+        return words.at[bidx, idx].set(val, mode="drop")
+
+    def body(j, carry):
+        st, words = carry
+        st, (row, val, flush) = _enc_round(st, syms[:, R - 1 - j], sym_tt,
+                                           nxt)
+        return st, store(words, row, val, flush)
+
+    words = jnp.zeros((B, W * k), jnp.int32)
+    st, words = lax.fori_loop(0, R, body,
+                              (_enc_init(syms[:, R], sym_tt, nxt), words))
+    wb, blo, bhi, size = _enc_finish(st, L)
+    words = store(store(words, wb, blo), wb + 1, bhi)
+    return words, size
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+
+def _platform() -> str:
+    platform = jax.default_backend()
+    if platform not in ("gpu", "cpu"):
+        raise ValueError(f"per-lane coder: unsupported backend {platform!r}"
+                         " (gpu or cpu)")
+    return platform
+
+
+def lanes_default() -> bool:
+    """``frame.compress``'s ``lanes=None``: the per-lane mode on the GPU,
+    the shared-stream mode (ops.coder) on the CPU."""
+    return _platform() == "gpu"
+
+
+def _impl(interpret: bool = False) -> str:
+    """Which driver runs the round loop on the default backend: the
+    compiled kernel on ``gpu``; the plain-JAX version on ``cpu``; the
+    kernel in Pallas interpret mode on either when ``interpret`` is
+    asked. Any other backend has no per-lane coder."""
+    platform = _platform()
+    if interpret:
+        return "interpret"
+    return "kernel" if platform == "gpu" else "xla"
+
+
+@functools.partial(jax.jit, static_argnames=("k", "L", "R", "impl"))
+def _decode_call(words, sizes, tbl, *, k, L, R, impl):
+    """(B, W, k) i32 words, (B, k) sizes, (B, 2^L) packed tables ->
+    ((B, (R+1)*k) u8 decoded blocks, (B, k) i32 final cursors: all zero
+    for a well-formed stream)."""
+    B, W = words.shape[:2]
+    args = (words.reshape(B, W * k), sizes, tbl)
+    if impl == "xla":
+        return _decode_xla(*args, k=k, W=W, L=L, R=R)
+    return _grid_call(
+        _decode_kernel,
+        (jax.ShapeDtypeStruct((B, (R + 1) * k), jnp.uint8),
+         jax.ShapeDtypeStruct((B, k), jnp.int32)),
+        args, k=k, W=W, L=L, R=R, interpret=impl == "interpret")
+
+
+@functools.partial(jax.jit, static_argnames=("k", "W", "L", "R", "impl"))
+def _encode_call(blocks, ttb, ttf, stt, *, k, W, L, R, impl):
+    """(B, (R+1)*k) u8 blocks + per-block tables -> ((B, W*k) i32 lane
+    words, (B, k) i32 bit sizes). Rows above a lane's last word are
+    unspecified (the lane merge reads only ``sizes`` bits)."""
+    B = blocks.shape[0]
+    args = (blocks, ttb, ttf, stt)
+    if impl == "xla":
+        return _encode_xla(*args, k=k, W=W, L=L, R=R)
+    return _grid_call(
+        _encode_kernel,
+        (jax.ShapeDtypeStruct((B, W * k), jnp.int32),
+         jax.ShapeDtypeStruct((B, k), jnp.int32)),
+        args, k=k, W=W, L=L, R=R, interpret=impl == "interpret")
+
+
+def _over_mesh(call, args, mesh):
+    """Run ``call(*args)`` with every argument's leading (block) axis
+    sharded over the mesh's first axis: each device codes its own block
+    shard (data parallel, no collectives), and each argument goes
+    straight to the devices that own it."""
+    if mesh is None:
+        return call(*map(jnp.asarray, args))
+    from jax.sharding import NamedSharding, PartitionSpec
 
     spec = PartitionSpec(mesh.axis_names[0])
-    return jax.shard_map(fn, mesh=mesh, in_specs=(spec,) * n_in,
-                         out_specs=(spec, spec, spec), check_vma=False)
+    args = [jax.device_put(a, NamedSharding(mesh, spec)) for a in args]
+    return jax.shard_map(call, mesh=mesh, in_specs=(spec,) * len(args),
+                         out_specs=(spec, spec), check_vma=False)(*args)
 
 
-FUSE_LANES = 8192  # target lanes per kernel invocation when fusing blocks.
-                   # NOT the same knob as a block's native k: single-table
-                   # k=16384 blocks decode fastest (39 vs 27 GB/s), but a
-                   # 16-block fusion at 16384 lanes measured 16.3 vs 28.0
-                   # GB/s at 8192 — the per-sublane table gather pays for
-                   # St=128 rows, so fused superblocks stay at 8192.
-
-
-def _fuse_factor(B: int, k: int, mesh) -> int:
-    """How many blocks to fuse into one superblock call: small-k blocks
-    pack side-by-side up to FUSE_LANES lanes — per-sublane tables make
-    this free (see _gather_rows). Disabled under a mesh (the block axis
-    must stay divisible by the mesh; sharded callers use large k).
-
-    Floor: the fused call must span >= 1024 lanes (S >= 8 sublane rows)
-    even when B is small — real Mosaic cannot lower the S=1 per-sublane
-    gather ("Shape mismatch in input, indices and output", found by
-    tests/tpu_smoke.py on a lone k=128 block), and S < 8 underfills the
-    8-sublane VPU tile anyway. Callers pad B with copies of block 0.
-    The floor applies under a mesh too (the same lowering failure is
-    otherwise reachable via sharded small-k encodes; the *_norm entry
-    points pad the batch to the F x mesh quantum)."""
-    floor = _cdiv(1024, k) if k < 1024 else 1
-    if mesh is not None:
-        return floor
-    return max(floor, max(1, min(B, FUSE_LANES // k)))
-
-
-def _expand_tbl(rows_list, S_each, F):
-    """Per-block (hi_n, 128) table rows -> per-superblock (hi_n, F*S_each,
-    128): sublane s of the fused call uses block s // S_each's table.
-    For F == 1 the table stays a single (hi_n, 1, 128) row set, which the
-    kernel broadcasts (register-resident, faster)."""
-    Bp = len(rows_list)
-    hi_n = rows_list[0].shape[0]
-    if F == 1:
-        return np.ascontiguousarray(np.stack(rows_list)[:, :, None, :])
-    t = np.stack(rows_list).reshape(Bp // F, F, hi_n, 128)
-    t = np.repeat(t.transpose(0, 2, 1, 3), S_each, axis=2)
-    return np.ascontiguousarray(t)  # (Bp//F, hi_n, F*S_each, 128)
+def _pad_batch(arrays, B, mesh):
+    """Pad every array's leading (block) axis from B to a multiple of
+    the mesh size with copies of block 0; the padded results are
+    discarded."""
+    pad = (-B) % mesh.size if mesh is not None else 0
+    if not pad:
+        return arrays
+    return [jnp.concatenate([a, jnp.repeat(a[:1], pad, 0)])
+            if isinstance(a, jax.Array)
+            else np.concatenate([a, np.repeat(a[:1], pad, 0)])
+            for a in arrays]
 
 
 # ---------------------------------------------------------------------------
-# Batched entry points (tables from the normalized histograms).
-#
-# Two table-build routes with identical bytes out:
-#   * host (default when the C++ native module is available): the
-#     batched native build runs in ~us per table and the packed gather
-#     rows (a few KB) ride the h2d — the on-device XLA build chain costs
-#     ~1-2 ms of device time PER CALL at 16 MiB blocks (argsort /
-#     searchsorted / scatter lowerings on tiny shapes — PERF.md
-#     "device-path overheads"), which at the L=8 operating point nearly
-#     doubles the kernel time;
-#   * device (fallback, and for callers holding device-resident norm
-#     tables): everything traced into one jit (_encode_e2e/_decode_e2e).
+# Table builds: host C++ (default when available — microseconds per
+# table) or on device (ops.tables, one jit). Identical tables either way.
 # ---------------------------------------------------------------------------
 
 
-def _rows_np(vals: np.ndarray) -> np.ndarray:
-    """Batched host analog of _rows_dev: (B, n) int -> (B, max(n//128,1),
-    128) int32 gather rows."""
-    B, n = vals.shape
-    if n < 128:
-        vals = np.pad(vals, ((0, 0), (0, 128 - n)))
-    return vals.astype(np.uint32).view(np.int32).reshape(B, -1, 128)
+@functools.partial(jax.jit, static_argnames=("L",))
+def _dec_tables_dev(norm_tables, *, L):
+    packed = jax.vmap(functools.partial(build_decode_table, log2=L))(
+        norm_tables)
+    return lax.bitcast_convert_type(packed, jnp.int32)
 
 
-def _pack_symt_np(tt_bits, tt_fs, L: int, small: bool) -> np.ndarray:
-    """Batched symbol-transform packing (B, 256|128) -> (B, rows, 128)
-    gather rows — the single normative HOST copy (per-block wrapper:
-    pack_enc_table_rows; device analog: _pack_symt_dev). The asserts
-    are static guarantees of the table-log; they catch a mispacked
-    table before it silently corrupts an encode."""
-    tb = np.asarray(tt_bits, np.uint32).astype(np.int64)
-    fs = np.asarray(tt_fs, np.int64)
-    if small:
-        tb, fs = tb[:, :128], fs[:, :128]
-    mb = (tb + 0xFFFF) >> 16           # max_bits_out (ceil of tb/2^16)
-    msp = (mb << 16) - tb              # min_state_plus
-    if L <= 10:
-        assert tb.max() < (L + 2) << 16 and np.abs(fs).max() < (1 << L)
-        return _rows_np((tb << (L + 1)) | (fs + (1 << L)))
-    if L <= 12:
-        assert (mb.max() <= 15 and msp.max() <= 0x3FFF
-                and np.abs(fs).max() < 4096)
-        return _rows_np((mb << 27) | (msp << 13) | (fs + 4096))
-    # two-plane transform (see _sym_transform): A = mb|fs, B = msp
-    assert (mb.max() <= 16 and msp.max() <= (1 << 16)
-            and np.abs(fs).max() < (1 << 15))
-    plane_a = _rows_np((mb << 18) | (fs + (1 << 17)))
-    return np.concatenate([plane_a, _rows_np(msp)], axis=1)
-
-
-def _stt_rows_np(table) -> np.ndarray:
-    """Batched next-state table pair-packing (B, 2^L) u16 -> (B, rows,
-    128) gather rows (2 entries per i32 word — see _encode_kernel's
-    _next_state)."""
-    t64 = np.asarray(table, np.int64)
-    return _rows_np(t64[:, 0::2] | (t64[:, 1::2] << 16))
-
-
-def _dec_rows_np(packed: np.ndarray, L: int,
-                 small: bool = False) -> np.ndarray:
-    """Batched host analog of decode_table_rows: (B, 2^L) u32 packed
-    entries -> (B, rows, 128) int32 gather rows (u-packed for
-    upack_ok batches at any L, split pair/quad layout for L <= 12,
-    flat above)."""
-    pk = packed.astype(np.int64)
-    if small:
-        nb = (pk >> 16) & 0xFF
-        base = pk & 0xFFFF
-        u = (base + (1 << L)) >> nb
-        # structural invariants of the tANS table (reference
-        # src/fse.rs:269-338): base = (u << nb) - 2^L for the unique
-        # spread-source state u in [1, 2^(L+1)). The caller (upack_ok)
-        # guarantees syms < 128 and u < 512 (automatic at L <= 8; above
-        # it holds iff no symbol's count exceeds 256 — L-independent,
-        # round 5 generalized this branch from its original L <= 9).
-        assert ((u << nb) == base + (1 << L)).all() and (u >= 1).all()
-        assert (pk >> 24).max() < 128 and u.max() < 512
-        half = ((pk >> 24) << 9) | u
-        return _rows_np(half[:, 0::2] | (half[:, 1::2] << 16))
-    if L > 12:
-        return _rows_np(pk)
-    nbns = (((pk >> 16) & 0xFF) << 12) | (pk & 0xFFF)
-    pairs = nbns[:, 0::2] | (nbns[:, 1::2] << 16)
-    sym = pk >> 24
-    quads = (sym[:, 0::4] | (sym[:, 1::4] << 8) | (sym[:, 2::4] << 16)
-             | (sym[:, 3::4] << 24))
-    return np.concatenate([_rows_np(pairs), _rows_np(quads)], axis=1)
-
-
-def _rows_dev(vals_i32):
-    """(B, n) int32 -> (B, max(n//128,1), 128) gather rows (device analog
-    of _rows_np; entry i of block b lives at [b, i >> 7, i & 127])."""
-    B, n = vals_i32.shape
-    if n < 128:
-        vals_i32 = jnp.pad(vals_i32, ((0, 0), (0, 128 - n)))
-    return vals_i32.reshape(B, -1, 128)
-
-
-def _fuse_tbl_dev(rows, S_each, F):
-    """Device analog of _expand_tbl: (B, hn, 128) -> (B//F, hn, St, 128)
-    with St = 1 (broadcast) for F == 1 else F*S_each per-sublane rows."""
-    B, hn, _ = rows.shape
-    if F == 1:
-        return rows[:, :, None, :]
-    t = rows.reshape(B // F, F, hn, 128).transpose(0, 2, 1, 3)
-    return jnp.repeat(t, S_each, axis=2)
-
-
-def _pack_symt_dev(tt_bits, tt_fs, L, small=False):
-    """(B, 256) uint32 tt_bits + (B, 256) int32 tt_fs -> packed symbol
-    transform gather rows (B, 2 or 4, 128) int32 (same layouts as the
-    host packing in encode_lanes; ranges are static guarantees of L).
-    ``small`` halves the rows for <=128-symbol alphabets (see
-    pack_enc_table_rows)."""
-    # tt_bits < 2^21 for every L <= 15 and all packings fit int32, so
-    # 32-bit math is exact (and independent of jax_enable_x64)
-    tb = tt_bits.astype(jnp.int32)
-    fs = tt_fs.astype(jnp.int32)
-    if small:
-        tb, fs = tb[:, :128], fs[:, :128]
-    if L <= 10:
-        # tb < (L+2)<<16 <= 2^20 and |fs| < 2^L: tb(20b) | fs+2^L(L+1 b)
-        # fits 31 bits — stores tt_bits directly (2-op in-kernel unpack)
-        return _rows_dev((tb << (L + 1)) | (fs + (1 << L)))
-    mb = (tb + 0xFFFF) >> 16
-    msp = (mb << 16) - tb
-    if L <= 12:
-        return _rows_dev((mb << 27) | (msp << 13) | (fs + 4096))
-    plane_a = _rows_dev((mb << 18) | (fs + (1 << 17)))
-    return jnp.concatenate([plane_a, _rows_dev(msp)], axis=1)
-
-
-def _encode_fused(blocks, symtf, sttf, *, k, L, R, W, F, interpret):
-    """Shared layout + kernel tail of _encode_e2e/_encode_e2e_rows (one
-    copy of the fiddly fusion reshapes): lane i codes bytes {i, i+k,
-    ...} — round r, lane i = byte r*k+i; the kernel consumes rounds in
-    reverse (via its grid index map — no flipped copy); each lane's
-    LAST byte folds into the initial state (reference
-    src/fse.rs:210-218)."""
-    B = blocks.shape[0]
-    Bf, S = B // F, F * k // 128
-    syms_nat = blocks[:, : R * k].reshape(B, R, k)
-    if F == 1:
-        syms_f = syms_nat.reshape(Bf, R, S, 128)  # pure reshape, no copy
-    else:
-        syms_f = (syms_nat.reshape(Bf, F, R, k).transpose(0, 2, 1, 3)
-                  .reshape(Bf, R, S, 128))
-    initf = blocks[:, R * k :].reshape(Bf, S, 128)
-    words, sizes = _encode_call(syms_f, initf, symtf, sttf, S=S, W=W, L=L,
-                                R=R, interpret=interpret)
-    return words, sizes.reshape(Bf, F, k).reshape(B, k)
-
-
-@functools.partial(jax.jit, static_argnames=("k", "L", "R", "W", "F",
-                                             "interpret", "small"))
-def _encode_e2e(blocks, norm_tables, *, k, L, R, W, F, interpret,
-                small=False):
-    """Raw blocks + normalized histograms -> encoded lane words, fully on
-    device: batched table build (ops.tables), transform packing, symbol
-    reversal, superblock fusion, and the Pallas kernel in one jit.
-    ``small``: every block's alphabet fits 128 symbols — the transform
-    gather rows halve (pack_enc_table_rows)."""
-    S_each = k // 128
+@functools.partial(jax.jit, static_argnames=("L",))
+def _enc_tables_dev(norm_tables, *, L):
     tbl, tt_bits, tt_fs = jax.vmap(
-        functools.partial(build_encode_table, log2=L))(
-            norm_tables.astype(jnp.int32))
-    symtf = _fuse_tbl_dev(_pack_symt_dev(tt_bits, tt_fs, L, small),
-                          S_each, F)
-    # next-state entries are u16: pack PAIRS into one i32 so the
-    # dominant in-kernel gather touches half the rows (entry i lives in
-    # packed[i >> 1], half selected by i & 1)
-    t32 = tbl.astype(jnp.int32)
-    pairs = t32[:, 0::2] | (t32[:, 1::2] << 16)
-    sttf = _fuse_tbl_dev(_rows_dev(pairs), S_each, F)
-    return _encode_fused(blocks, symtf, sttf, k=k, L=L, R=R, W=W, F=F,
-                         interpret=interpret)
+        functools.partial(build_encode_table, log2=L))(norm_tables)
+    return (tt_bits.astype(jnp.int32), tt_fs.astype(jnp.int32),
+            tbl.astype(jnp.int32))
 
 
-@functools.partial(jax.jit, static_argnames=("k", "L", "R", "W", "F",
-                                             "interpret"))
-def _encode_e2e_rows(blocks, symt_rows, stt_rows, *, k, L, R, W, F,
-                     interpret):
-    """_encode_e2e with PREBUILT table gather rows (host native build):
-    skips the on-device table-build chain — only the layout reshapes
-    (_encode_fused) and the kernel remain on device."""
-    S_each = k // 128
-    symtf = _fuse_tbl_dev(symt_rows, S_each, F)
-    sttf = _fuse_tbl_dev(stt_rows, S_each, F)
-    return _encode_fused(blocks, symtf, sttf, k=k, L=L, R=R, W=W, F=F,
-                         interpret=interpret)
-
-
-@functools.partial(jax.jit, static_argnames=("w_act", "F", "k"))
-def _unfuse_words(words, *, w_act, F, k):
-    """(Bf, W, S, 128) fused kernel words -> (Bf*F, w_act, k) per-block
-    rows (device-side slice to the populated rows + unfuse transpose)."""
-    Bf = words.shape[0]
-    w = words[:, :w_act].reshape(Bf, w_act, F, k)
-    return w.transpose(0, 2, 1, 3).reshape(Bf * F, w_act, k)
-
-
-def _bucket_b(b: int) -> int:
-    """Round a batch size up to a bounded set of compile shapes: powers
-    of two through 64, then multiples of 64. Each distinct jitted batch
-    shape costs a full XLA/Mosaic compile — expensive, and never cached
-    across processes on some backends — while the padded blocks only
-    cost microseconds of device time. Callers additionally round up to
-    their fuse/mesh quantum."""
-    if b <= 64:
-        return 1 << (b - 1).bit_length() if b > 1 else 1
-    return _cdiv(b, 64) * 64
-
-
-def encode_lanes_norm(blocks, norm_tables, *, k, L, W,
-                      interpret=False, mesh=None, lazy=False,
-                      host_tables=None):
-    """Batched encode from raw blocks (B, n) uint8 with n = (R+1)*k and
-    the (B, 256) int32 normalized histograms (must all share table log
-    ``L``). Inputs may be host or device arrays; one h2d for the data,
-    one d2h for the results.
-    Returns (words (B, w_act, k) uint32, sizes (B, k) int32).
-
-    ``host_tables`` picks the table-build route (see the section
-    comment): None = auto (host C++ when available), True/False to
-    force. Both routes produce identical bytes (tests pin it).
-
-    ``lazy=True`` returns a zero-arg collect closure instead: the kernel
-    is dispatched asynchronously and the D2H sync happens only when the
-    closure runs — callers pipeline chunks by dispatching several and
-    collecting in order (frame._encode_group_pl)."""
+def _host_tables(host_tables):
     from .. import native
+
+    return native.available() if host_tables is None else host_tables
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
+def decode_lanes(words, sizes, tables, *, k, L, R, interpret=False,
+                 mesh=None, lazy=False):
+    """Decode B blocks of k per-lane streams.
+
+    words: (B, W, k) uint32 — words[b, w, i] is word w of lane i of block
+      b (rows at or past W read as zero; bits above a lane's size are
+      never read).
+    sizes: (B, k) int32 — per-lane total bit counts.
+    tables: (B, 2^L) packed decode tables (sym<<24|nb<<16|base,
+      ops.tables / spec.fse / native layout).
+    mesh: optional jax.sharding.Mesh — blocks shard over its first axis
+      and decode data-parallel.
+    Returns the decoded blocks (B, (R+1)*k) uint8 (host numpy). Raises
+    ValueError on a corrupt stream (any lane cursor not exactly
+    drained). ``lazy=True`` returns a zero-arg collect closure instead:
+    the decode is dispatched asynchronously and the sync and error check
+    happen when the closure runs (callers pipeline chunks)."""
     from ..utils.cache import enable_compilation_cache
 
-    enable_compilation_cache()  # idempotent; Mosaic compiles are minutes
-    B, n = blocks.shape
-    if n % k or k % 128:
-        raise ValueError("k must be a multiple of 128 and divide n")
-    R = n // k - 1
-    interpret = interpret or jax.default_backend() != "tpu"
-    if host_tables is None:
-        host_tables = native.available()
-    # norm tables are host numpy on the frame path; tiny sync otherwise
-    nt = np.ascontiguousarray(np.asarray(norm_tables), np.int32)
-    # small-alphabet fast path: all blocks' symbols < 128 (count 0 above
-    # ==> the symbol never appears; nonzero<->nonzero is a normalization
-    # invariant) — the transform gather rows halve.
-    small = not nt[:, 128:].any()
-    Bp = _bucket_b(B)
-    F = _fuse_factor(Bp, k, mesh)
-    quantum = F * (mesh.size if mesh is not None else 1)
-    pad = _cdiv(Bp, quantum) * quantum - B
-    if pad:  # pad with copies of block 0 (results discarded)
-        blocks = jnp.concatenate([blocks, jnp.repeat(blocks[:1], pad, 0)])
-        nt = np.concatenate([nt, np.repeat(nt[:1], pad, 0)])
-    if host_tables:
-        table, tt_bits, tt_fs = native.build_encode_tables(nt, L)
-        symt = _pack_symt_np(tt_bits, tt_fs, L, small)
-        stt = _stt_rows_np(table)
-        if F == 1 and _cdiv(R, _pick_e(L)) * _pick_e(L) - R <= 1:
-            # packed fast path: the kernel reads the raw (B, R+1, S, 128)
-            # reshape of the blocks directly — no in-jit slice copy
-            # (works for host AND device-resident blocks; the reshape is
-            # free either way). Since round 5 the kernel also takes
-            # R % E == E-1 shapes back-aligned (one spill round into the
-            # init row, masked via pad_back) — only R % E == 1 still
-            # needs the padded-syms fallback below.
-            S = k // 128
-            call = functools.partial(_encode_call_packed, S=S, W=W, L=L,
-                                     R=R, interpret=interpret)
-            args = (jnp.asarray(blocks).reshape(-1, R + 1, S, 128),
-                    jnp.asarray(symt[:, :, None, :]),
-                    jnp.asarray(stt[:, :, None, :]))
-        else:
-            call = functools.partial(_encode_e2e_rows, k=k, L=L, R=R, W=W,
-                                     F=F, interpret=interpret)
-            args = (jnp.asarray(blocks), jnp.asarray(symt),
-                    jnp.asarray(stt))
-        n_in = 3
+    enable_compilation_cache()
+    B, W, kk = words.shape
+    if kk != k or k % LANES:
+        raise ValueError(f"k must be a multiple of {LANES} and match words")
+    impl = _impl(interpret)
+    if isinstance(words, np.ndarray):
+        words = np.ascontiguousarray(words).view(np.int32)
     else:
-        call = functools.partial(_encode_e2e, k=k, L=L, R=R, W=W, F=F,
-                                 interpret=interpret, small=small)
-        args = (jnp.asarray(blocks), jnp.asarray(nt))
-        n_in = 2
-    if mesh is not None:
-        from jax.sharding import PartitionSpec
-
-        spec = PartitionSpec(mesh.axis_names[0])
-        call = jax.shard_map(call, mesh=mesh, in_specs=(spec,) * n_in,
-                             out_specs=(spec, spec), check_vma=False)
-    words, sizes = call(*args)
+        words = lax.bitcast_convert_type(words, jnp.int32)
+    if isinstance(tables, np.ndarray):
+        tables = np.ascontiguousarray(tables).view(np.int32)
+    sizes = np.asarray(sizes, np.int32) if not isinstance(
+        sizes, jax.Array) else sizes
+    out, cur = _over_mesh(
+        functools.partial(_decode_call, k=k, L=L, R=R, impl=impl),
+        _pad_batch([words, sizes, tables], B, mesh), mesh)
 
     def collect():
-        # pull the (small) sizes first, then transfer only the word rows
-        # that are actually populated — W is the worst-case bound,
-        # typically ~2x the real maximum. w_act is bucketed to multiples
-        # of 16 to bound the number of _unfuse_words compilations.
-        # (reshape: sizes is (Bp, k) from the e2e routes, (Bp, S, 128)
-        # from the packed kernel call)
-        s = np.asarray(sizes).reshape(-1, k)[:B]
-        w_act = min(_cdiv(int(s.max()) // 32 + 2, 16) * 16, W)
-        out = _unfuse_words(words, w_act=w_act, F=F, k=k)[:B]
-        return np.asarray(out).view(np.uint32), s
+        if bool(jnp.any(cur != 0)):
+            raise ValueError("corrupt stream: lane cursor not drained")
+        return np.asarray(out if out.shape[0] == B else out[:B])
 
     return collect if lazy else collect()
-
-
-@functools.partial(jax.jit, static_argnames=("k", "L", "R", "F",
-                                             "interpret"))
-def _decode_fused(words, sizes, tblf, *, k, L, R, F, interpret):
-    """Shared layout + kernel tail of _decode_e2e/_decode_e2e_rows (one
-    copy of the fusion reshapes): fuse the word/size layout, run the
-    kernel, unfuse + slice the outputs."""
-    B, W = words.shape[0], words.shape[1]
-    Bf, S = B // F, F * k // 128
-    wordsf = (words.reshape(Bf, F, W, k).transpose(0, 2, 1, 3)
-              .reshape(Bf, W, S, 128))
-    sizesf = sizes.reshape(Bf, S, 128)
-    syms, finals, err = _decode_call(wordsf, sizesf, tblf, S=S, W=W, L=L,
-                                     R=R, interpret=interpret)
-    syms = (syms[:, :R].reshape(Bf, R, F, k).transpose(0, 2, 1, 3)
-            .reshape(B, R, k))
-    finals = finals.reshape(Bf, F, k).reshape(B, k).astype(jnp.uint8)
-    return syms, finals, err
-
-
-@functools.partial(jax.jit, static_argnames=("k", "L", "R", "F",
-                                              "interpret", "small"))
-def _decode_e2e(words, sizes, norm_tables, *, k, L, R, F, interpret,
-                small=False):
-    """Lane words + normalized histograms -> decoded symbols, fully on
-    device (batched decode-table build + fusion + the Pallas kernel).
-    ``small``: batch-wide u-pack eligibility (u-packed layout — see
-    decode_table_rows / upack_ok)."""
-    packed = jax.vmap(functools.partial(build_decode_table, log2=L))(
-        norm_tables.astype(jnp.int32))
-    pk = lax.bitcast_convert_type(packed, jnp.int32)
-    if small:  # u-packed layout, any L (see decode_table_rows)
-        nb = _shr_u(pk, 16) & 0xFF
-        base = pk & 0xFFFF
-        u = _shr_u(base + (1 << L), nb)
-        half = lax.shift_left(_shr_u(pk, 24), 9) | u
-        rows = _rows_dev(half[:, 0::2] | lax.shift_left(half[:, 1::2],
-                                                        16))
-    elif L <= 12:  # split pair/quad layout (see decode_table_rows)
-        nbns = (lax.shift_left(_shr_u(pk, 16) & 0xFF, 12)) | (pk & 0xFFF)
-        pairs = nbns[:, 0::2] | lax.shift_left(nbns[:, 1::2], 16)
-        sym = _shr_u(pk, 24)
-        quads = (sym[:, 0::4] | lax.shift_left(sym[:, 1::4], 8)
-                 | lax.shift_left(sym[:, 2::4], 16)
-                 | lax.shift_left(sym[:, 3::4], 24))
-        rows = jnp.concatenate([_rows_dev(pairs), _rows_dev(quads)],
-                               axis=1)
-    else:
-        rows = _rows_dev(pk)
-    tblf = _fuse_tbl_dev(rows, k // 128, F)
-    return _decode_fused(words, sizes, tblf, k=k, L=L, R=R, F=F,
-                         interpret=interpret)
-
-
-@functools.partial(jax.jit, static_argnames=("k", "L", "R", "F",
-                                              "interpret"))
-def _decode_e2e_rows(words, sizes, rows, *, k, L, R, F, interpret):
-    """_decode_e2e with PREBUILT decode-table gather rows (host native
-    build): skips the on-device table-build chain; fusion stays on
-    device (the F > 1 superblock and device-resident-words cases — the
-    F == 1 host-words fast path pre-shapes and calls the kernel
-    directly instead)."""
-    tblf = _fuse_tbl_dev(rows, k // 128, F)
-    return _decode_fused(words, sizes, tblf, k=k, L=L, R=R, F=F,
-                         interpret=interpret)
 
 
 def decode_lanes_norm(words, sizes, norm_tables, *, k, L, R,
                       interpret=False, mesh=None, lazy=False,
                       host_tables=None):
-    """Batched decode from lane words and the (B, 256) int32 normalized
-    histograms (all sharing table log ``L``). words is (B, W, k) uint32
-    host or device; returns (syms (B, R, k) uint8, finals (B, k) uint8)
-    (the d2h is paid inside — host numpy out). Raises ValueError on a
-    corrupt stream (any lane cursor not exactly drained).
+    """``decode_lanes`` from the (B, 256) int32 normalized histograms
+    (all sharing table log ``L``). ``host_tables`` picks the table build:
+    None = host C++ when available, True/False to force host/device."""
+    nt = np.ascontiguousarray(np.asarray(norm_tables), np.int32)
+    if _host_tables(host_tables):
+        from .. import native
 
-    ``host_tables`` picks the table-build route (None = auto, host C++
-    when available — see the section comment); bytes out are identical
-    either way. ``lazy=True`` returns a zero-arg collect closure (async
-    dispatch; the sync and the error check happen when it runs — see
-    encode_lanes_norm)."""
-    from .. import native
+        tables = native.build_decode_tables(nt, L)
+    else:
+        tables = _dec_tables_dev(jnp.asarray(nt), L=L)
+    return decode_lanes(words, sizes, tables, k=k, L=L, R=R,
+                        interpret=interpret, mesh=mesh, lazy=lazy)
+
+
+@functools.partial(jax.jit, static_argnames=("w_act",))
+def _head_rows(words, *, w_act):
+    return words[:, :w_act]
+
+
+def encode_lanes(blocks, tables, *, k, L, W, interpret=False, mesh=None,
+                 lazy=False):
+    """Encode B blocks of k per-lane streams.
+
+    blocks: (B, n) uint8 with n = (R+1)*k, host or device — round r,
+      lane i is byte r*k + i; each lane's last byte folds into its
+      initial state (reference src/fse.rs:210-218).
+    tables: (tt_bits (B, 256), tt_fs (B, 256), next-state table
+      (B, 2^L)) — the spec.fse / ops.tables / native encode layout.
+    W: word rows to allocate (encode_w_bound).
+    Returns (words (B, w_act, k) uint32, sizes (B, k) int32 bit counts),
+    host numpy, with w_act the populated rows (bucketed to 16).
+    ``lazy=True`` returns a collect closure (see decode_lanes)."""
     from ..utils.cache import enable_compilation_cache
 
-    enable_compilation_cache()  # idempotent; Mosaic compiles are minutes
-    B, W, kk = words.shape
-    if kk != k or k % 128:
-        raise ValueError("k must be a multiple of 128 and match words")
-    if W % 8:  # octo-chunk layout needs 8-row-aligned word arrays
-        words = np.concatenate(
-            [words, np.zeros((B, 8 - W % 8, k), words.dtype)], axis=1)
-        W = words.shape[1]
-    interpret = interpret or jax.default_backend() != "tpu"
-    Bp = _bucket_b(B)
-    F = _fuse_factor(Bp, k, mesh)
-    if host_tables is None:
-        host_tables = native.available()
-    nt = np.ascontiguousarray(np.asarray(norm_tables), np.int32)
-    quantum = F * (mesh.size if mesh is not None else 1)
-    pad = _cdiv(Bp, quantum) * quantum - B
-    if pad:  # pad with copies of block 0 (results discarded)
-        nt = np.concatenate([nt, np.repeat(nt[:1], pad, 0)])
-    # batch-wide u-pack eligibility (upack_ok): cuts the per-round
-    # decode gather count (1/2 at L <= 9, 2/3 + no off-path quad above)
-    small = upack_ok(nt, L)
-    rows_np = (_dec_rows_np(native.build_decode_tables(nt, L), L, small)
-               if host_tables else None)
-
-    if host_tables and F == 1 and isinstance(words, np.ndarray):
-        # fast path: pre-shape on the host (free views) and call the
-        # kernel directly — no in-jit layout work at all
-        wn = words.view(np.int32)
-        sn = np.ascontiguousarray(np.asarray(sizes), np.int32)
-        if pad:
-            wn = np.concatenate([wn, np.repeat(wn[:1], pad, 0)])
-            sn = np.concatenate([sn, np.repeat(sn[:1], pad, 0)])
-        Bp2 = wn.shape[0]
-        S = k // 128
-        call = functools.partial(_decode_call, S=S, W=W, L=L, R=R,
-                                 interpret=interpret)
-        if mesh is not None:
-            call = _shard_over_blocks(call, mesh, 3)
-        syms, finals, err = call(
-            jnp.asarray(wn.reshape(Bp2, W, S, 128)),
-            jnp.asarray(sn.reshape(Bp2, S, 128)),
-            jnp.asarray(rows_np[:, :, None, :]))
-
-        def collect():
-            if int(jnp.sum(err)) != 0:
-                raise ValueError("corrupt stream: lane cursor not drained")
-            # slice the bucket-pad blocks on DEVICE (transfer only the B
-            # real blocks), the padded epoch rounds host-side (< 0.3%
-            # extra d2h vs a full-output device copy)
-            sd = syms if B == Bp2 else syms[:B]
-            fd = finals if B == Bp2 else finals[:B]
-            s = np.asarray(sd).reshape(B, -1, k)[:, :R]
-            f = np.asarray(fd).reshape(B, k).astype(np.uint8)
-            return s, f
-
-        return collect if lazy else collect()
-
-    if isinstance(words, np.ndarray):
-        words = words.view(np.int32)
-    else:
-        words = lax.bitcast_convert_type(words, jnp.int32)
-    sizes = jnp.asarray(sizes, jnp.int32)
-    if pad:  # pad with copies of block 0 (results discarded)
-        words = jnp.concatenate([words, jnp.repeat(words[:1], pad, 0)])
-        sizes = jnp.concatenate([sizes, jnp.repeat(sizes[:1], pad, 0)])
-    if host_tables:
-        # fused superblocks / device-resident words: host-built rows,
-        # device-side fusion (still skips the on-device table build)
-        call = functools.partial(_decode_e2e_rows, k=k, L=L, R=R, F=F,
-                                 interpret=interpret)
-        tbl_arg = jnp.asarray(rows_np)
-    else:
-        call = functools.partial(_decode_e2e, k=k, L=L, R=R, F=F,
-                                 interpret=interpret, small=small)
-        tbl_arg = jnp.asarray(nt)
-    if mesh is not None:
-        from jax.sharding import PartitionSpec
-
-        spec = PartitionSpec(mesh.axis_names[0])
-        call = jax.shard_map(call, mesh=mesh, in_specs=(spec,) * 3,
-                             out_specs=(spec, spec, spec), check_vma=False)
-    syms, finals, err = call(jnp.asarray(words), sizes, tbl_arg)
+    enable_compilation_cache()
+    B, n = blocks.shape
+    if n % k or k % LANES:
+        raise ValueError(f"k must be a multiple of {LANES} and divide n")
+    R = n // k - 1
+    impl = _impl(interpret)
+    tables = [np.asarray(t, np.uint32).view(np.int32)
+              if isinstance(t, np.ndarray) else t.astype(jnp.int32)
+              for t in tables]
+    words, sizes = _over_mesh(
+        functools.partial(_encode_call, k=k, W=W, L=L, R=R, impl=impl),
+        _pad_batch([blocks, *tables], B, mesh), mesh)
 
     def collect():
-        if int(jnp.sum(err)) != 0:
-            raise ValueError("corrupt stream: lane cursor not drained")
-        # slice the bucket-pad blocks on device: transfer only B blocks
-        Bp2 = syms.shape[0]
-        return (np.asarray(syms if B == Bp2 else syms[:B]),
-                np.asarray(finals if B == Bp2 else finals[:B]))
+        # pull the (small) sizes first, then transfer only the word rows
+        # that are populated — W is the worst-case bound, typically ~2x
+        # the real maximum. w_act is bucketed to multiples of 16 to
+        # bound the number of _head_rows compiles.
+        s = np.asarray(sizes)[:B]
+        w_act = min(_cdiv(int(s.max()) // 32 + 2, 16) * 16, W)
+        w = _head_rows(words.reshape(-1, W, k), w_act=w_act)
+        return np.asarray(w)[:B].view(np.uint32), s
 
     return collect if lazy else collect()
 
 
-def decode_lanes(words, sizes, packed_tables, *, k, L, R, interpret=False,
-                 mesh=None, e_rounds=None):
-    """Decode B blocks of k per-lane streams.
+def encode_lanes_norm(blocks, norm_tables, *, k, L, W, interpret=False,
+                      mesh=None, lazy=False, host_tables=None):
+    """``encode_lanes`` from the (B, 256) int32 normalized histograms
+    (all sharing table log ``L``); ``host_tables`` as in
+    decode_lanes_norm."""
+    nt = np.ascontiguousarray(np.asarray(norm_tables), np.int32)
+    if _host_tables(host_tables):
+        from .. import native
 
-    words: (B, W, k) uint32 — per-lane stream words; words[b, w, i] is word
-      w of lane i of block b (with >= 2 zero guard rows at the top).
-    sizes: (B, k) int32 — per-lane total bit counts.
-    packed_tables: (B, 2^L) uint32 decode tables (sym<<24|nb<<16|base,
-      ops.tables / spec.fse layout).
-    mesh: optional jax.sharding.Mesh — blocks are sharded over its first
-      axis and decoded data-parallel (B must be a multiple of mesh.size).
-    Small-k blocks are fused into ~FUSE_LANES-lane superblocks (the
-    per-sublane table gather gives every block its own table for free).
-    e_rounds: override rounds-per-epoch E (tuning/testing knob — e.g. to
-    pin the exact-R vs masked-tail epoch specializations against each
-    other; wire bytes are E-independent).
-    Returns (syms (B, R, k) uint8, finals (B, k) uint8); raises ValueError
-    on a corrupt stream (any lane cursor not exactly drained)."""
-    B, W, kk = words.shape
-    assert kk == k and k % 128 == 0, (kk, k)
-    if W % 8:  # octo-chunk layout needs 8-row-aligned word arrays
-        pad = 8 - W % 8
-        words = np.concatenate(
-            [words, np.zeros((B, pad, k), words.dtype)], axis=1)
-        W += pad
-    interpret = interpret or jax.default_backend() != "tpu"
-
-    F = _fuse_factor(B, k, mesh)
-    # batch-wide u-pack eligibility from the packed entries (the sym
-    # byte enumerates exactly the alphabet in use): cuts the per-round
-    # decode gathers (decode_table_rows)
-    small = upack_ok_packed([packed_tables[b] for b in range(B)], L)
-    rows_list = [decode_table_rows(packed_tables[b], L, small)
-                 for b in range(B)]
-    if B % F:  # pad with copies of block 0 (results discarded)
-        pad = F - B % F
-        words = np.concatenate([words, words[:1].repeat(pad, 0)])
-        sizes = np.concatenate([np.asarray(sizes), sizes[:1].repeat(pad, 0)])
-        rows_list += [rows_list[0]] * pad
-    Bp = words.shape[0]
-    Bf, kf, S = Bp // F, F * k, F * k // 128
-    # lanes of block g*F+f occupy [f*k, (f+1)*k) of superblock g
-    wordsf = np.ascontiguousarray(
-        words.reshape(Bf, F, W, k).transpose(0, 2, 1, 3))
-    sizesf = np.asarray(sizes, np.int32).reshape(Bf, kf)
-    tbl = _expand_tbl(rows_list, k // 128, F)
-
-    call = functools.partial(_decode_call, S=S, W=W, L=L, R=R,
-                             interpret=interpret, e_rounds=e_rounds)
-    if mesh is not None:
-        assert Bf % mesh.size == 0, (Bf, mesh.size)
-        call = _shard_over_blocks(call, mesh, 3)
-    syms, finals, err = call(
-        jnp.asarray(wordsf.view(np.int32).reshape(Bf, W, S, 128)),
-        jnp.asarray(sizesf.reshape(Bf, S, 128)),
-        jnp.asarray(tbl),
-    )
-    if int(jnp.sum(err)) != 0:
-        raise ValueError("corrupt stream: lane cursor not drained")
-    syms = (np.asarray(syms).reshape(Bf, -1, F, k)[:, :R]
-            .transpose(0, 2, 1, 3).reshape(Bp, R, k)[:B])
-    finals = (np.asarray(finals).astype(np.uint8)
-              .reshape(Bp, k)[:B])
-    return syms, finals
-
-
-# ---------------------------------------------------------------------------
-# Encode kernel
-# ---------------------------------------------------------------------------
-
-
-def _encode_kernel(syms_ref, init_ref, symt_ref, stt_ref,
-                   words_ref, sizes_ref,
-                   state_s, cur_s, wb_s, blo_s, bhi_s, base_s, ch_s,
-                   *, S, W, L, R, G, hi_n, E, p_refill, ns, pad_back=0):
-    r = pl.program_id(1)
-    symt = symt_ref[0]  # (ns or 2*ns, St, 128) packed symbol transforms;
-                        # ns = rows per plane (1 on the small-alphabet
-                        # fast path, else 2 — see pack_enc_table_rows)
-    stt = stt_ref[0]    # (hi_n,St,128) next-state table
-
-    def _next_state(idx):
-        # next-state entries are u16 PAIRS packed per i32 (entry i at
-        # packed[i >> 1], half by i & 1): halves the dominant gather
-        v = _gather_rows(stt, _shr_u(idx, 1), hi_n, S)
-        return jnp.where((idx & 1) == 1, _shr_u(v, 16), v & 0xFFFF)
-
-    def _sym_transform(sym):
-        # L <= 10: one packed gather holding tt_bits directly —
-        # tb(20b, < (L+2)<<16) | fs+2^L(L+1 bits) — so the unpack is two
-        # ops (no mb/msp reconstruction). L in 11..12: one packed
-        # gather, mb(4b) | min_state_plus(14b) | fs+4096(13b) (tt_bits
-        # == (mb<<16) - msp, reference src/fse.rs:164-189; the ranges
-        # fit 31 bits for every L <= 12). L >= 13: the fields no longer
-        # fit one word (msp up to 2^16, |fs| < 2^15, mb up to 16) — two
-        # planes, two gathers: plane A = mb(5b) | fs+2^17(18b),
-        # plane B = msp(17b).
-        if L <= 10:
-            v = _gather_rows(symt[:ns], sym, ns, S)
-            return _shr_u(v, L + 1), (v & ((2 << L) - 1)) - (1 << L)
-        if L <= 12:
-            v = _gather_rows(symt[:ns], sym, ns, S)
-            mb = _shr_u(v, 27)
-            msp = _shr_u(v, 13) & 0x3FFF
-            fs = (v & 0x1FFF) - 4096
-        else:
-            va = _gather_rows(symt[:ns], sym, ns, S)
-            msp = _gather_rows(symt[ns:], sym, ns, S)
-            mb = _shr_u(va, 18)
-            fs = (va & 0x3FFFF) - (1 << 17)
-        return lax.shift_left(mb, 16) - msp, fs
-
-    def _dump(words8, b, upto, qbase=0):
-        """Add chunk registers holding rows [b, upto) into the output
-        array (one pass: residue-j rows ride the j-slice), returning the
-        cleared registers. Bit ranges are disjoint, so add is exact.
-        ``words8`` may be a window starting at q-row ``qbase``."""
-        W8v = words8.shape[0]
-        qrows = lax.broadcasted_iota(jnp.int32, (W8v, S, 128), 0) + qbase
-        out, ch2 = [], []
-        for j in range(8):
-            rj = b + ((j - b) & 7)
-            valid = rj < upto
-            qj = jnp.where(valid, rj >> 3, -1)
-            out.append(words8[:, j]
-                       + jnp.where(qrows == qj[None], ch_s[j][None], 0))
-            ch2.append(jnp.where(valid, 0, ch_s[j]))
-        return jnp.stack(out, axis=1), ch2
-
-    @pl.when(r == 0)
-    def _init():
-        words_ref[0] = jnp.zeros((W, S, 128), jnp.int32)
-        for j in range(8):
-            ch_s[j] = jnp.zeros((S, 128), jnp.int32)
-        # new_first_symbol (reference: src/fse.rs:210-218); floor+1 form:
-        # identical to the reference for table_log <= 14, well-defined at
-        # 15 where the reference underflows (spec.fse Encoder docstring).
-        # (reshape: the init block is (1, S, 128) from _encode_call and
-        # (1, 1, S, 128) from _encode_call_packed)
-        sym = init_ref[...].reshape(S, 128).astype(jnp.int32)
-        tb, fs = _sym_transform(sym)
-        bits_out0 = _shr_u(tb, 16) + 1
-        value0 = lax.shift_left(bits_out0, 16) - tb
-        state_s[:] = _next_state(_shr_u(value0, bits_out0) + fs)
-        z = jnp.zeros((S, 128), jnp.int32)
-        cur_s[:] = z
-        wb_s[:] = z
-        blo_s[:] = z
-        bhi_s[:] = z
-        base_s[:] = z
-
-    @pl.when(jnp.logical_and(r % p_refill == 0, r != 0))
-    def _period_dump():
-        wb = wb_s[:]
-        b = base_s[:]
-
-        def _full():
-            w2, ch2 = _dump(words_ref[0].reshape(W // 8, 8, S, 128), b, wb)
-            words_ref[0] = w2.reshape(W, S, 128)
-            for j in range(8):
-                ch_s[j] = ch2[j]
-
-        if W // 8 > REFILL_QW:
-            # windowed read-modify-write: completed rows [b, b+8) almost
-            # always fit a few q-rows (see REFILL_QW), sparing the
-            # full-array pass both ways
-            s, wide = _chunk_window(b, W // 8, REFILL_QW)
-
-            @pl.when(jnp.logical_not(wide))
-            def _narrow():
-                sl = words_ref[0, pl.ds(s * 8, REFILL_QW * 8)].reshape(
-                    REFILL_QW, 8, S, 128)
-                w2, ch2 = _dump(sl, b, wb, qbase=s)
-                words_ref[0, pl.ds(s * 8, REFILL_QW * 8)] = w2.reshape(
-                    REFILL_QW * 8, S, 128)
-                for j in range(8):
-                    ch_s[j] = ch2[j]
-
-            pl.when(wide)(_full)
-        else:
-            _full()
-        base_s[:] = wb
-
-    states, c = state_s[:], cur_s[:]
-    wb, blo, bhi = wb_s[:], blo_s[:], bhi_s[:]
-    ch = [ch_s[j] for j in range(8)]
-
-    # one conditional window flush per epoch: the completed word moves to
-    # its chunk register (row wb has residue wb & 7), not to memory
-    flush = (c - wb * 32) >= 32
-    d = wb & 7
-    for j in range(8):
-        ch[j] = jnp.where(jnp.logical_and(flush, d == j), blo, ch[j])
-    blo = jnp.where(flush, bhi, blo)
-    bhi = jnp.where(flush, 0, bhi)
-    wb = jnp.where(flush, wb + 1, wb)
-
-    def _put(blo, bhi, off, val):
-        # insert val's bits at [off, off+nb) in the window; off in [0,62)
-        offm = off & 31
-        lov = lax.shift_left(val, offm)
-        hiv = _shr_u(_shr_u(val, 1), 31 - offm)  # val >> (32-offm)
-        lo32 = off < 32
-        blo = blo | jnp.where(lo32, lov, 0)
-        bhi = bhi | jnp.where(lo32, hiv, lov)
-        return blo, bhi
-
-    # the epoch's emitted bits accumulate into ONE register word first
-    # (E*L <= 32 by _pick_e), then a single window insert — (E-1) fewer
-    # _put chains per epoch than inserting round by round
-    vacc = jnp.zeros((S, 128), jnp.int32)
-    bacc = jnp.zeros((S, 128), jnp.int32)
-    # when R % E == 0 every (r, e) round is real: skip the dead-round
-    # masking at compile time (the shipping config has R=1023, E=3).
-    # Otherwise the dead rounds sit at one end of the processing order:
-    # the padded-syms route (front padding, _encode_call) deadens the
-    # LAST R..G*E-1 processed rounds; the packed route reads the raw
-    # (R+1)-row array back-aligned — its chunk G-1 spills into the init
-    # row — deadening the FIRST ``pad_back`` processed rounds instead.
-    exact = R % E == 0
-    for e in range(E):
-        # rounds are consumed in reverse raw order (reference
-        # src/lib.rs:120): the grid walks natural chunks back-to-front
-        # (index map G-1-r) and this loop walks each chunk's rows
-        # back-to-front — no materialized flip of the symbol array.
-        sym = syms_ref[0, E - 1 - e].astype(jnp.int32)
-        tb, fs = _sym_transform(sym)
-        bits_out = _shr_u(tb + states, 16)
-        if not exact:
-            t = r * E + e
-            active = (t >= pad_back) if pad_back else (t < R)
-            bits_out = jnp.where(active, bits_out, 0)
-        val = states & (lax.shift_left(jnp.int32(1), bits_out) - 1)
-        nstate = _next_state(_shr_u(states, bits_out) + fs)
-        states = nstate if exact else jnp.where(active, nstate, states)
-        vacc = vacc | lax.shift_left(val, bacc)
-        bacc = bacc + bits_out
-    blo, bhi = _put(blo, bhi, c - wb * 32, vacc)
-    c = c + bacc
-
-    state_s[:], cur_s[:] = states, c
-    wb_s[:], blo_s[:], bhi_s[:] = wb, blo, bhi
-    for j in range(8):
-        ch_s[j] = ch[j]
-
-    @pl.when(r == G - 1)
-    def _fin():
-        # finish: final state's low L bits (reference: src/fse.rs:248-250),
-        # after one more conditional flush so the window can take L bits
-        fl = (c - wb * 32) >= 32
-        d2 = wb & 7
-        for j in range(8):
-            ch_s[j] = jnp.where(jnp.logical_and(fl, d2 == j), blo, ch_s[j])
-        blo2 = jnp.where(fl, bhi, blo)
-        bhi2 = jnp.where(fl, 0, bhi)
-        wb2 = jnp.where(fl, wb + 1, wb)
-        blo3, bhi3 = _put(blo2, bhi2, c - wb2 * 32, states & ((1 << L) - 1))
-        # dump completed rows [base, wb2) first (frees their registers),
-        # then park the window words and dump [wb2, wb2+2) — two passes,
-        # final step only, and collision-free for every L <= 15
-        w2, ch2 = _dump(words_ref[0].reshape(W // 8, 8, S, 128),
-                        base_s[:], wb2)
-        for j in range(8):
-            ch_s[j] = ch2[j]
-        d3 = wb2 & 7
-        d4 = (wb2 + 1) & 7
-        for j in range(8):
-            ch_s[j] = jnp.where(d3 == j, ch_s[j] | blo3, ch_s[j])
-            ch_s[j] = jnp.where(d4 == j, ch_s[j] | bhi3, ch_s[j])
-        w3, _ = _dump(w2, wb2, wb2 + 2)
-        words_ref[0] = w3.reshape(W, S, 128)
-        sizes_ref[0] = c + L
-
-
-@functools.partial(jax.jit, static_argnames=("S", "W", "L", "R", "interpret",
-                                              "e_rounds"))
-def _encode_call(syms, init_syms, symt, stt, *, S, W, L, R,
-                 interpret=False, e_rounds=None):
-    """``syms`` is (B, R, S, 128) in NATURAL round order; the kernel
-    consumes rounds in reverse via the grid index map (materializing a
-    flipped copy of the symbol array costs XLA a pathological ~70 s
-    compile on this backend and an extra HBM pass)."""
-    B = syms.shape[0]
-    assert W % 8 == 0, "W must be a multiple of 8 (octo-chunk layout)"
-    E = e_rounds or _pick_e(L)
-    p_refill = _pick_p(E, L)
-    G = _cdiv(R, E)
-    # the next-state table is pair-packed (2 u16 entries per i32 word)
-    hi_n = max((1 << L) // 256, 1)
-    pad_r = G * E - R
-    if pad_r:
-        # pad at the FRONT so natural chunks align with reversed-order
-        # consumption (padded round q' = q + pad_r; active-round math in
-        # the kernel is unchanged)
-        syms = jnp.concatenate(
-            [jnp.zeros((B, pad_r, S, 128), jnp.uint8), syms], axis=1)
-    # transform rows per plane: the array shape carries the small-alphabet
-    # choice (rows = ns for L <= 12, 2*ns two-plane above)
-    ns = symt.shape[1] if L <= 12 else symt.shape[1] // 2
-    kern = functools.partial(_encode_kernel, S=S, W=W, L=L, R=R, G=G,
-                             hi_n=hi_n, E=E, p_refill=p_refill, ns=ns)
-    scr = pltpu.VMEM((S, 128), jnp.int32)
-    words, sizes = pl.pallas_call(
-        kern,
-        grid=(B, G),
-        in_specs=[
-            # encode step t handles raw round R-1-t; grid step r reads the
-            # natural chunk G-1-r and the kernel walks its rows in reverse
-            pl.BlockSpec((1, E, S, 128), lambda b, r: (b, G - 1 - r, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, S, 128), lambda b, r: (b, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, symt.shape[1], symt.shape[2], 128),
-                         lambda b, r: (b, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, hi_n, stt.shape[2], 128),
-                         lambda b, r: (b, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, W, S, 128), lambda b, r: (b, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, S, 128), lambda b, r: (b, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((B, W, S, 128), jnp.int32),
-            jax.ShapeDtypeStruct((B, S, 128), jnp.int32),
-        ],
-        scratch_shapes=[scr, scr, scr, scr, scr, scr,
-                        pltpu.VMEM((8, S, 128), jnp.int32)],
-        compiler_params=_CP,
-        interpret=interpret,
-    )(syms, init_syms, symt, stt)
-    return words, sizes
-
-
-@functools.partial(jax.jit, static_argnames=("S", "W", "L", "R",
-                                              "interpret", "e_rounds"))
-def _encode_call_packed(blocks4, symt, stt, *, S, W, L, R,
-                        interpret=False, e_rounds=None):
-    """_encode_call reading the raw block bytes as ONE (B, R+1, S, 128)
-    uint8 array — a FREE reshape of the (B, n) blocks (contiguous; rows
-    0..R-1 are the round symbols, row R the per-lane init bytes). The
-    two BlockSpecs below index the same operand, so no in-jit
-    slice+reshape copy of the whole input happens (that copy costs
-    ~0.7 ms per 128 MiB in _encode_e2e — PERF.md device-path
-    overheads). Requires G*E <= R+1, i.e. R % E == 0 or one spill round
-    (so the back-aligned chunk reads stay inside the R+1 rows; holds at
-    the flagship pow2 block/k configs for both E=3, which divides
-    R = 2^m - 1, and E=4, which spills exactly one round into the init
-    row — masked via ``pad_back``); callers fall back to the slicing
-    path otherwise."""
-    B = blocks4.shape[0]
-    assert W % 8 == 0, "W must be a multiple of 8 (octo-chunk layout)"
-    E = e_rounds or _pick_e(L)
-    G = _cdiv(R, E)
-    pad_back = G * E - R
-    assert pad_back <= 1 and blocks4.shape[1] == R + 1
-    p_refill = _pick_p(E, L)
-    hi_n = max((1 << L) // 256, 1)
-    ns = symt.shape[1] if L <= 12 else symt.shape[1] // 2
-    kern = functools.partial(_encode_kernel, S=S, W=W, L=L, R=R, G=G,
-                             hi_n=hi_n, E=E, p_refill=p_refill, ns=ns,
-                             pad_back=pad_back)
-    scr = pltpu.VMEM((S, 128), jnp.int32)
-    words, sizes = pl.pallas_call(
-        kern,
-        grid=(B, G),
-        in_specs=[
-            # encode step t handles raw round R-1-t; grid step r reads the
-            # natural chunk G-1-r and the kernel walks its rows in reverse
-            pl.BlockSpec((1, E, S, 128), lambda b, r: (b, G - 1 - r, 0, 0),
-                         memory_space=pltpu.VMEM),
-            # the init bytes are row R of the SAME operand (1-row block)
-            pl.BlockSpec((1, 1, S, 128), lambda b, r: (b, R, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, symt.shape[1], symt.shape[2], 128),
-                         lambda b, r: (b, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, hi_n, stt.shape[2], 128),
-                         lambda b, r: (b, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, W, S, 128), lambda b, r: (b, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, S, 128), lambda b, r: (b, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((B, W, S, 128), jnp.int32),
-            jax.ShapeDtypeStruct((B, S, 128), jnp.int32),
-        ],
-        scratch_shapes=[scr, scr, scr, scr, scr, scr,
-                        pltpu.VMEM((8, S, 128), jnp.int32)],
-        compiler_params=_CP,
-        interpret=interpret,
-    )(blocks4, blocks4, symt, stt)
-    return words, sizes
-
-
-def encode_lanes(syms, init_syms, enc_tables, *, k, L, W, interpret=False,
-                 mesh=None, e_rounds=None, small_alpha=False):
-    """Encode B blocks of k per-lane streams.
-
-    syms: (B, R, k) uint8 — round-major lane symbols (round r, lane i = byte
-      r*k + i of the block; the kernel consumes rounds in reverse).
-    init_syms: (B, k) uint8 — each lane's LAST byte (folded into the initial
-      state, reference src/fse.rs:210-218).
-    enc_tables: list of B (table, tt_bits, tt_fs) tuples (spec.fse layout:
-      tt_bits < 2^24, |tt_fs| < 2^15, table values < 2^16).
-    W: word rows to allocate (>= worst-case lane bits/32 + 2 guard rows;
-      see encode_w_bound).
-    mesh: optional jax.sharding.Mesh — blocks shard over its first axis
-      and encode data-parallel (B must be a multiple of mesh.size).
-    e_rounds: override rounds-per-epoch E (tuning/testing knob; wire
-      bytes are E-independent).
-    small_alpha: caller guarantees every coded symbol is < 128 in every
-      block — halves the transform gather rows (pack_enc_table_rows).
-      (encode_lanes_norm detects this automatically from the norm
-      tables; here the tables don't carry counts, so it is opt-in.)
-    Returns (words (B, W_act, k) uint32, sizes (B, k) int32 bit counts)."""
-    B, R, kk = syms.shape
-    assert kk == k and k % 128 == 0
-    interpret = interpret or jax.default_backend() != "tpu"
-
-    F = _fuse_factor(B, k, mesh)
-    symt, stt = [], []
-    for (t, tb, fs) in enc_tables:
-        sr, tr = pack_enc_table_rows(t, tb, fs, L, small_alpha)
-        symt.append(sr)
-        stt.append(tr)
-    syms = np.asarray(syms, np.uint8)
-    init_syms = np.asarray(init_syms, np.uint8)
-    if B % F:  # pad with copies of block 0 (results discarded)
-        pad = F - B % F
-        syms = np.concatenate([syms, syms[:1].repeat(pad, 0)])
-        init_syms = np.concatenate([init_syms, init_syms[:1].repeat(pad, 0)])
-        symt += [symt[0]] * pad
-        stt += [stt[0]] * pad
-    Bp = syms.shape[0]
-    Bf, kf, S = Bp // F, F * k, F * k // 128
-    syms_nat = np.ascontiguousarray(
-        syms.reshape(Bf, F, R, k).transpose(0, 2, 1, 3)
-    ).reshape(Bf, R, S, 128)
-    initf = np.ascontiguousarray(init_syms.reshape(Bf, kf))
-    symtf = _expand_tbl(symt, k // 128, F)
-    sttf = _expand_tbl(stt, k // 128, F)
-
-    call = functools.partial(_encode_call, S=S, W=W, L=L, R=R,
-                             interpret=interpret, e_rounds=e_rounds)
-    if mesh is not None:
-        assert Bf % mesh.size == 0, (Bf, mesh.size)
-        from jax.sharding import PartitionSpec
-
-        spec = PartitionSpec(mesh.axis_names[0])
-        call = jax.shard_map(call, mesh=mesh, in_specs=(spec,) * 4,
-                             out_specs=(spec, spec), check_vma=False)
-    words, sizes = call(
-        jnp.asarray(syms_nat),
-        jnp.asarray(initf.reshape(Bf, S, 128)),
-        jnp.asarray(symtf), jnp.asarray(sttf),
-    )
-    # pull the (small) sizes first, then transfer only the word rows that
-    # are actually populated — W is the worst-case bound, typically ~2x
-    # the real maximum, and device->host bandwidth is precious
-    sizes = np.asarray(sizes).reshape(Bp, k)[:B]
-    w_act = min(int((int(sizes.max()) + 31) // 32) + 1, W)
-    words = np.ascontiguousarray(np.asarray(words[:, :w_act]))
-    words = (words.view(np.uint32).reshape(Bf, w_act, F, k)
-             .transpose(0, 2, 1, 3).reshape(Bp, w_act, k)[:B])
-    words = np.ascontiguousarray(words)
-    return words, sizes
+        table, tt_bits, tt_fs = native.build_encode_tables(nt, L)
+        tables = (tt_bits, tt_fs, table.astype(np.int32))
+    else:
+        tables = _enc_tables_dev(jnp.asarray(nt), L=L)
+    return encode_lanes(blocks, tables, k=k, L=L, W=W, interpret=interpret,
+                        mesh=mesh, lazy=lazy)
 
 
 def encode_w_bound(R: int, L: int) -> int:
     """Worst-case word rows per lane: R rounds of <= L bits each plus the
-    final L-bit state (new_first_symbol emits no bits), plus 2 guard rows,
-    rounded up to the 8-row octo-chunk layout."""
-    return _cdiv(_cdiv(R * L + L, 32) + 2, 8) * 8
+    final L-bit state (new_first_symbol emits no bits), plus the window's
+    2 rows."""
+    return _cdiv(R * L + L, 32) + 2
 
 
 # ---------------------------------------------------------------------------

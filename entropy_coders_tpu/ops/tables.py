@@ -1,7 +1,7 @@
 """Device-side tANS table construction.
 
 The reference builds tables with a serial position-chasing loop
-(reference: src/fse.rs:101-189, 280-338). The TPU formulation is fully
+(reference: src/fse.rs:101-189, 280-338). The device formulation is fully
 vectorized, no scan:
 
 * the spread's visited positions are the fixed sequence

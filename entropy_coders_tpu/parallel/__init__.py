@@ -1,6 +1,6 @@
 """Multi-chip / multi-host parallelism (jax.sharding over device meshes)."""
 
-from . import multihost, rdma
+from . import multihost
 from .sharding import (block_sharding, compress, decompress, default_mesh,
                        init_distributed, sharded_histogram)
 
@@ -11,6 +11,5 @@ __all__ = [
     "default_mesh",
     "init_distributed",
     "multihost",
-    "rdma",
     "sharded_histogram",
 ]

@@ -1,13 +1,14 @@
 """Multi-chip block-parallel compression over a ``jax.sharding.Mesh``.
 
 The reference is single-threaded (SURVEY.md §2: no DP/TP/collectives);
-the TPU-native scaling story is data parallelism over independent blocks:
+the scaling story is data parallelism over independent blocks:
 
 * blocks shard over the mesh's ``blocks`` axis; histogram, table build,
   encode and decode are per-block, so XLA partitions the batched kernels
   with zero cross-chip communication in the coding itself;
 * shared-table mode reduces per-block histograms with one ``psum``-style
-  all-reduce over the block axis (rides ICI) and broadcasts one table.
+  all-reduce over the block axis (NCCL on GPUs) and broadcasts one
+  table.
 
 Host gather of the variable-length compressed sections is the ordered
 all-gather: device results come back as padded (B, W) words + lengths and
@@ -51,7 +52,7 @@ def decompress(frame: bytes, mesh: Mesh | None = None, **kwargs) -> bytes:
 
 
 def sharded_histogram(blocks, mesh: Mesh):
-    """All-device histogram with an ICI all-reduce over the block axis:
+    """All-device histogram with an all-reduce over the block axis:
     per-block counts then a cross-block sum (XLA inserts the collective).
     Returns (256,) uint32 counts replicated on every device."""
     from ..ops.histogram import histogram_blocks

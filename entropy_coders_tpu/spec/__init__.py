@@ -1,7 +1,7 @@
 """Host-side executable specification (correctness oracle) of the codec.
 
 Every module here is an exact-semantics re-implementation of the reference
-(reference: /root/reference/src); the TPU compute path in
+(reference: the crate's src/); the device compute path in
 ``entropy_coders_tpu.ops`` is tested for bit-exactness against it.
 """
 

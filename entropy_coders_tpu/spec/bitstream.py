@@ -15,7 +15,7 @@ and alignment tricks are CPU micro-optimizations of one simple model:
 * ``BitStreamReader`` — read it *forwards* (FIFO) with exact framing
   (reference: src/bitstream/stream_reader.rs:16-114).
 
-The TPU compute path does not use these classes; it uses the vectorized
+The device compute path does not use these classes; it uses the vectorized
 pack/unpack kernels in ``entropy_coders_tpu.ops``. Equality between the two
 is enforced by the property tests in ``tests/test_bitstream.py``.
 """

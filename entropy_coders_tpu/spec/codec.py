@@ -24,7 +24,7 @@ interleave/order contract:
   ``j, j+1, .., k-1, 0, .., j-1`` (generalizes the two exit paths of
   ``fse_decompress2``, src/lib.rs:228-243).
 
-This shared-bitstream interleave is the key to the TPU design: per decode
+This shared-bitstream interleave is the key to the data-parallel design: per decode
 round all k lane states are known simultaneously, so per-lane bit counts
 are known, and an exclusive prefix sum yields every lane's read offset —
 one serial step per *round* (n/k symbols), fully parallel across lanes.

@@ -2,7 +2,7 @@
 state machines.
 
 Semantics follow the reference exactly (reference: src/fse.rs) so that the
-TPU kernels in ``entropy_coders_tpu.ops`` can be tested against these for
+device kernels in ``entropy_coders_tpu.ops`` can be tested against these for
 bit-exactness:
 
 * table spread rule ``step = size*5//8 + 3`` with low-probability symbols
@@ -180,7 +180,7 @@ class DecodeTable:
 
     Stored as three parallel arrays (symbol, num_bits, new_state) plus a
     packed uint32 form ``packed = symbol<<24 | num_bits<<16 | new_state``
-    used by the TPU kernels so each decode step is a single gather.
+    used by the device kernels so each decode step is a single gather.
     """
 
     def __init__(self, hist: NormHistogram):

@@ -14,7 +14,7 @@ that compressed frames are byte-identical:
 
 Normalization is O(256) integer work per block — metadata, not a hot path —
 so it runs on the host with exact Python/numpy integer arithmetic. The hot
-counting loop has a TPU kernel in ``entropy_coders_tpu.ops.histogram``; this
+counting loop has a device form in ``entropy_coders_tpu.ops.histogram``; this
 module's count is the numpy oracle for it.
 """
 

@@ -1,8 +1,8 @@
 """Utilities: profiling hooks and codec metrics.
 
 The reference has no tracing/metrics subsystem (SURVEY.md §5 — only
-commented-out prints and unused perf-event dev-deps); the TPU-native
-equivalents live here: JAX profiler trace capture around codec calls and
+commented-out prints and unused perf-event dev-deps); the equivalents
+live here: JAX profiler trace capture around codec calls and
 frame-level statistics for observability.
 """
 

@@ -1,7 +1,7 @@
 """Profiling hooks: JAX profiler traces and wall-clock timing.
 
-TPU equivalent of the reference's (absent) tracing story: wrap any codec
-call in :func:`trace` to capture a full XLA/TPU profile viewable in
+The counterpart of the reference's (absent) tracing story: wrap any codec
+call in :func:`trace` to capture a full XLA/device profile viewable in
 TensorBoard/Perfetto, or :func:`timed` for lightweight wall-clock stats.
 """
 

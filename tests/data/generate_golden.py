@@ -134,7 +134,9 @@ def make_mixed(n: int, seed: int) -> np.ndarray:
     ])
 
 
-def build_case(case: dict) -> bytes:
+def build_case(case: dict, interpret: bool = True) -> bytes:
+    """The case's bytes; ``interpret=False`` runs the per-lane coder as
+    compiled for the default backend instead of the Pallas interpreter."""
     import entropy_coders_tpu as ect
     from entropy_coders_tpu import frame as F
 
@@ -150,7 +152,7 @@ def build_case(case: dict) -> bytes:
         with tempfile.TemporaryDirectory() as td:
             p = os.path.join(td, "g.fsck")
             CK.save_pytree(p, make_ckpt_tree(spec["seed"]),
-                           interpret=True, **kwargs)
+                           interpret=interpret, **kwargs)
             with open(p, "rb") as f:
                 return f.read()
     data = (make_mixed(spec["size"], spec["seed"])
@@ -166,7 +168,7 @@ def build_case(case: dict) -> bytes:
     kwargs = {kk: case[kk] for kk in
               ("block_size", "k", "lanes", "shared_table", "checksum",
                "table_log", "bit_pack") if kk in case}
-    return F.compress(data, interpret=True, **kwargs)
+    return F.compress(data, interpret=interpret, **kwargs)
 
 
 def main():

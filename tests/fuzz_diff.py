@@ -8,7 +8,7 @@ contract against the others:
     frames for any (data, k) (the native codec is an independent C++
     implementation of the same wire format, reference src/lib.rs:112-143);
   * spec and native decompress both invert both frames exactly;
-  * the TPU container (``frame.compress``/``decompress``) round-trips
+  * the container (``frame.compress``/``decompress``) round-trips
     under random (block_size, k, lanes, bit_pack, table_log, checksum,
     shared_table) combinations, including the per-block "auto" log
     policy (reference src/histogram.rs:264-277).
@@ -192,15 +192,7 @@ if __name__ == "__main__":
     ap.add_argument("--wide", action="store_true",
                     help="sample the full container config space "
                          "(slow: every distinct shape is a jit compile)")
-    ap.add_argument("--tpu", action="store_true",
-                    help="use the default (TPU) backend; without this the "
-                         "soak pins the CPU backend — env JAX_PLATFORMS is "
-                         "overridden by TPU plugins, the config knob wins")
     args = ap.parse_args()
-    if not args.tpu:
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
     globals()["_VERBOSE"] = True
     print(f"fuzzing: iters={args.iters} seed={args.seed} wide={args.wide}",
           flush=True)

@@ -1,6 +1,6 @@
 """Device-side lane repack (ops.device_repack) — byte-exactness vs the
-host merge/split (the measured-alternative prototype, PERF.md
-"device-side lane merge, measured")."""
+host merge/split (the device-side alternative, not on the frame
+path)."""
 
 import numpy as np
 import pytest

@@ -1,4 +1,4 @@
-"""TPU container frame round-trip tests (format: FORMAT.md)."""
+"""Container frame round-trip tests (format: FORMAT.md)."""
 
 import numpy as np
 import pytest
@@ -139,9 +139,9 @@ def test_auto_table_log_mixed_corpus(rng):
     """table_log="auto" (the reference's per-block optimal_log2 policy,
     src/histogram.rs:264-277) round-trips heterogeneous logs in one frame
     and beats a FIXED log-10 ratio on mixed-entropy data. (Compared
-    against an explicit 10, not the library default: since round 5 the
-    default is the measured ("fast", 0.0025) policy, which is allowed to
-    beat auto — smaller logs shrink headers at small block sizes.)"""
+    against an explicit 10, not the library default: the default is the
+    ("fast", 0.0025) policy, which is allowed to beat auto — smaller logs
+    shrink headers at small block sizes.)"""
     parts = [
         rng.integers(0, 4, 1 << 12).astype(np.uint8),
         rng.integers(0, 256, 1 << 12, dtype=np.uint8),
@@ -168,9 +168,8 @@ def test_auto_table_log_mixed_corpus(rng):
 
 
 def test_default_policy_is_fast_p25(rng):
-    """The lanes-path default table_log is the measured ("fast", 0.0025)
-    policy (round-5 decision, PERF.md "default policy sweep") — pinned
-    so a future default change is deliberate, not drift."""
+    """The lanes-path default table_log is the ("fast", 0.0025) policy —
+    pinned so a future default change is deliberate, not drift."""
     assert F.PL_TABLE_LOG == ("fast", 0.0025)
     data = np.concatenate([
         gen_sequence(0.3, 1 << 14),
@@ -227,7 +226,7 @@ def test_fast_table_log_policy(rng):
     """table_log="fast" picks per-block logs <= the auto (ratio-optimal)
     choice, costs at most ~the policy's eps in ratio, and round-trips.
     On the bench distribution the estimate must actually drop the log
-    (PERF.md: L=9 costs +0.24% vs 10 — well inside the 0.5% budget)."""
+    (L=9 costs about +0.24% vs 10 — well inside the 0.5% budget)."""
     from entropy_coders_tpu.normalize import fast_log2s, optimal_log2s
 
     data = gen_sequence(0.2, 1 << 16)
@@ -236,7 +235,7 @@ def test_fast_table_log_policy(rng):
     fast = fast_log2s(counts, 1 << 14)
     auto = optimal_log2s(counts, 1 << 14)
     # on the bench distribution at 16 KiB blocks the estimate drops
-    # 11 -> 9, the measured throughput-max point (PERF.md)
+    # 11 -> 9
     assert (fast < auto).all()
 
     for lanes in (False, True):

@@ -66,18 +66,16 @@ def test_tables_skewed(rng):
 
 
 def test_histogram_kernels(rng):
-    """Both backend forms (scatter, eq-scan) agree with numpy on data
-    whose length is and isn't a multiple of 128."""
-    from entropy_coders_tpu.ops.histogram import (_hist_blocks_eqsum,
-                                                  _hist_blocks_scatter,
-                                                  histogram_u8)
-    for n in (1 << 16, 12345):
+    """The scatter-add histogram agrees with numpy on data whose length
+    is and isn't a multiple of 128, and on blocks that split into
+    several sub-block histograms."""
+    from entropy_coders_tpu.ops.histogram import SUB, histogram_u8
+
+    for n in (1 << 16, 12345, 3 * SUB):
         data = rng.integers(0, 256, n, dtype=np.uint8)
         expected = np.bincount(data, minlength=256).astype(np.uint32)
         np.testing.assert_array_equal(
-            np.asarray(_hist_blocks_scatter(data[None]))[0], expected)
-        np.testing.assert_array_equal(
-            np.asarray(_hist_blocks_eqsum(data[None]))[0], expected)
+            np.asarray(histogram_blocks(data[None]))[0], expected)
         np.testing.assert_array_equal(np.asarray(histogram_u8(data)),
                                       expected)
 

@@ -1,11 +1,15 @@
-"""Exactness tests for the per-lane-stream Pallas kernels (ops.pl_coder).
+"""Exactness tests for the per-lane-stream coder (ops.pl_coder).
 
-Run in Pallas interpreter mode on the CPU backend; the same kernels are
-verified on real TPU hardware by bench.py / scratch checks. The oracle is
+Both drivers of the round step run here on the CPU backend: the Pallas
+kernel in interpret mode, and the plain-JAX version (the CPU path). The
+compiled kernel runs on the card in tests/test_gpu.py. The oracle is
 ``spec``: each lane's bit stream must be bit-identical to the reference
 encoder run on that lane's strided subsequence (reference semantics:
 src/lib.rs:112-143 per lane)."""
 
+import functools
+
+import jax
 import numpy as np
 import pytest
 
@@ -38,13 +42,16 @@ def _mk(seed, B, k, Q, gen):
 
 
 def _oracle_blocks(datas, hists, k):
+    """Spec oracle for equal-log blocks: (L, encode tables (tt_bits,
+    tt_fs, next-state) stacked over blocks, packed decode tables, lane
+    words (B, W, k), lane bit sizes (B, k))."""
     Ls = [h.log2 for h in hists]
     L = Ls[0]
     assert all(x == L for x in Ls)
     encs, packs, words_list, sizes_list = [], [], [], []
     for data, hist in zip(datas, hists):
         enc, dec = EncodeTable(hist), DecodeTable(hist)
-        encs.append((enc.table, enc.tt_bits, enc.tt_find_state))
+        encs.append((enc.tt_bits, enc.tt_find_state, enc.table))
         packs.append(dec.packed)
         lane_payloads, lane_bits = [], []
         for i in range(k):
@@ -58,7 +65,9 @@ def _oracle_blocks(datas, hists, k):
     words = np.zeros((len(datas), W, k), np.uint32)
     for b, w in enumerate(words_list):
         words[b, : w.shape[0]] = w
-    return L, encs, np.stack(packs), words, np.stack(sizes_list)
+    tables = tuple(np.stack([np.asarray(e[j]) for e in encs])
+                   for j in range(3))
+    return L, tables, np.stack(packs), words, np.stack(sizes_list)
 
 
 def geo(rng, n):
@@ -69,252 +78,222 @@ def narrow(rng, n):
     return rng.integers(0, 4, n, dtype=np.uint8)
 
 
+def _check_decode(datas, words, sizes, packs, *, k, L, R, **kw):
+    out = PL.decode_lanes(words, sizes, packs, k=k, L=L, R=R, **kw)
+    assert out.shape == (len(datas), (R + 1) * k)
+    np.testing.assert_array_equal(out, np.stack(datas))
+
+
+def _check_encode(datas, tables, words, sizes, *, k, L, **kw):
+    R = len(datas[0]) // k - 1
+    We = PL.encode_w_bound(R, L)
+    kw_, ks = PL.encode_lanes(np.stack(datas), tables, k=k, L=L, W=We, **kw)
+    np.testing.assert_array_equal(ks, sizes)
+    for b in range(len(datas)):
+        assert PL.lane_merge(kw_[b], ks[b]) == PL.lane_merge(words[b],
+                                                            sizes[b])
+
+
+@functools.lru_cache(maxsize=None)
+def _oracle_at_log(L):
+    """Two 128-lane x 2 blocks of 9 rounds at table log L (alphabet sized
+    so normalize keeps L), with their spec oracle."""
+    k, Q = 256, 9
+    rng = np.random.default_rng(500 + L)
+    nsym = min(1 << (L - 3), 256)
+    datas = [rng.integers(0, nsym, k * Q).astype(np.uint8) for _ in range(2)]
+    hists = [Histogram(d).normalize(L) for d in datas]
+    assert all(h.log2 == L for h in hists)
+    return (datas,) + _oracle_blocks(datas, hists, k)
+
+
+TABLE_LOGS = range(5, 16)
+
+
+@pytest.mark.parametrize("L", TABLE_LOGS)
+def test_kernel_decode_bit_exact_per_log(L):
+    """The Pallas kernel (interpret mode) decodes the spec's lane streams
+    at every table log of the reference's 5..15 range."""
+    datas, L2, tables, packs, words, sizes = _oracle_at_log(L)
+    _check_decode(datas, words, sizes, packs, k=256, L=L, R=8,
+                  interpret=True)
+
+
+@pytest.mark.parametrize("L", TABLE_LOGS)
+def test_kernel_encode_bit_exact_per_log(L):
+    """The Pallas kernel (interpret mode) writes the spec's lane streams
+    bit for bit at every table log 5..15."""
+    datas, L2, tables, packs, words, sizes = _oracle_at_log(L)
+    _check_encode(datas, tables, words, sizes, k=256, L=L, interpret=True)
+
+
+@pytest.mark.parametrize("L", TABLE_LOGS)
+def test_plain_jax_bit_exact_per_log(L):
+    """The plain-JAX version (the CPU path) encodes and decodes the spec's
+    lane streams bit for bit at every table log 5..15."""
+    datas, L2, tables, packs, words, sizes = _oracle_at_log(L)
+    assert PL._impl(False) == "xla"
+    _check_decode(datas, words, sizes, packs, k=256, L=L, R=8)
+    _check_encode(datas, tables, words, sizes, k=256, L=L)
+
+
+@pytest.mark.parametrize("backend,kernel,lanes", [
+    ("gpu", "kernel", True), ("cpu", "xla", False)])
+def test_platform_choice(monkeypatch, backend, kernel, lanes):
+    """gpu runs the compiled kernel (the interpreter only when asked) and
+    defaults compress to the per-lane mode; cpu runs the plain-JAX
+    version and keeps the shared-stream default."""
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert PL._impl(False) == kernel
+    assert PL._impl(True) == "interpret"
+    assert PL.lanes_default() is lanes
+
+
+def test_platform_choice_unknown_backend_raises(monkeypatch):
+    monkeypatch.setattr(jax, "default_backend", lambda: "rocm")
+    with pytest.raises(ValueError, match="unsupported backend"):
+        PL._impl(False)
+    with pytest.raises(ValueError, match="unsupported backend"):
+        PL.lanes_default()
+    from entropy_coders_tpu import frame as F
+    with pytest.raises(ValueError, match="unsupported backend"):
+        F.compress(b"ab" * 4096)
+
+
+def test_kernel_grid_and_padding():
+    """The kernel's grid is (blocks, k / LANES) and a mesh pads the block
+    batch with copies of block 0 whose results are dropped: 3 blocks of
+    384 lanes over a 2-device mesh decode to exactly the 3 inputs."""
+    from jax.sharding import Mesh
+
+    datas, hists = _mk(71, 3, 384, 5, geo)
+    L, tables, packs, words, sizes = _oracle_blocks(datas, hists, 384)
+    mesh = Mesh(np.array(jax.devices()[:2]), ("blocks",))
+    _check_decode(datas, words, sizes, packs, k=384, L=L, R=4,
+                  interpret=True, mesh=mesh)
+    _check_encode(datas, tables, words, sizes, k=384, L=L, interpret=True,
+                  mesh=mesh)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        PL.decode_lanes(words[:, :, :192], sizes[:, :192], packs, k=192,
+                        L=L, R=4)
+
+
 @pytest.mark.parametrize("gen,Q", [(geo, 16), (narrow, 9)])
 def test_decode_lanes_bit_exact(gen, Q):
     B, k = 2, 256
     datas, hists = _mk(7, B, k, Q, gen)
-    L, encs, packs, words, sizes = _oracle_blocks(datas, hists, k)
-    R = Q - 1
-    syms, finals = PL.decode_lanes(words, sizes, packs, k=k, L=L, R=R,
-                                   interpret=True)
-    for b, data in enumerate(datas):
-        got = np.concatenate([syms[b].reshape(-1), finals[b]])
-        assert got.tobytes() == data.tobytes()
+    L, tables, packs, words, sizes = _oracle_blocks(datas, hists, k)
+    _check_decode(datas, words, sizes, packs, k=k, L=L, R=Q - 1,
+                  interpret=True)
 
 
 @pytest.mark.parametrize("gen,Q", [(geo, 16), (narrow, 9)])
 def test_encode_lanes_bit_exact(gen, Q):
     B, k = 2, 256
     datas, hists = _mk(11, B, k, Q, gen)
-    L, encs, packs, words, sizes = _oracle_blocks(datas, hists, k)
-    R = Q - 1
-    syms_in = np.stack([d[: R * k].reshape(R, k) for d in datas])
-    init_syms = np.stack([d[R * k:] for d in datas])
-    We = PL.encode_w_bound(R, L)
-    kw, ks = PL.encode_lanes(syms_in, init_syms, encs, k=k, L=L, W=We,
-                             interpret=True)
-    assert (ks == sizes).all()
-    for b in range(B):
-        got = PL.lane_merge(kw[b], ks[b])
-        pad = np.zeros((We - words.shape[1], k), np.uint32)
-        expect = PL.lane_merge(np.concatenate([words[b], pad]), sizes[b])
-        assert got == expect
+    L, tables, packs, words, sizes = _oracle_blocks(datas, hists, k)
+    _check_encode(datas, tables, words, sizes, k=k, L=L, interpret=True)
 
 
 @pytest.mark.parametrize("L", [5, 6, 8])
 def test_pl_small_table_log_bit_exact(L):
-    """Tiny table logs: the pair/quad split tables pad below one 128-wide
-    row (and the encode pair table likewise) — both kernels must stay
-    bit-exact vs the spec oracle."""
-    B, k, Q = 1, 128, 6
+    """Tiny table logs with a 3-symbol alphabet stay bit-exact vs the
+    spec oracle in both directions."""
+    k, Q = 128, 6
     rng = np.random.default_rng(L)
     data = rng.integers(0, 3, k * Q).astype(np.uint8)  # tiny alphabet
     hist = Histogram(data).normalize(L)
     assert hist.log2 == L
-    L2, encs, packs, words, sizes = _oracle_blocks([data], [hist], k)
-    R = Q - 1
-    syms, finals = PL.decode_lanes(words, sizes, packs, k=k, L=L, R=R,
-                                   interpret=True)
-    got = np.concatenate([np.asarray(syms)[0].reshape(-1),
-                          np.asarray(finals)[0]])
-    assert got.tobytes() == data.tobytes()
-    We = PL.encode_w_bound(R, L)
-    kw, ks = PL.encode_lanes(data[: R * k].reshape(1, R, k),
-                             data[R * k:].reshape(1, k), encs, k=k, L=L,
-                             W=We, interpret=True)
-    assert (np.asarray(ks) == sizes).all()
-    assert PL.lane_merge(np.asarray(kw)[0], sizes[0]) == \
-        PL.lane_merge(words[0], sizes[0])
+    L2, tables, packs, words, sizes = _oracle_blocks([data], [hist], k)
+    _check_decode([data], words, sizes, packs, k=k, L=L, R=Q - 1,
+                  interpret=True)
+    _check_encode([data], tables, words, sizes, k=k, L=L, interpret=True)
 
 
 @pytest.mark.parametrize("L", [13, 15])
 def test_pl_high_table_log_bit_exact(L):
-    """table_log 13-15 on the flagship path (reference supports the full
-    5..15 range in every code path, src/fse.rs:103-106). Encode uses the
-    two-plane symbol transform above L=12."""
-    B, k, Q = 1, 128, 5
+    """table_log 13-15 on the flagship path with a full 256-symbol
+    alphabet (reference supports the full 5..15 range in every code path,
+    src/fse.rs:103-106)."""
+    k, Q = 128, 5
     rng = np.random.default_rng(L)
     data = rng.integers(0, 256, k * Q, dtype=np.uint8)
     hist = Histogram(data).normalize(L)
     assert hist.log2 == L
-    L2, encs, packs, words, sizes = _oracle_blocks([data], [hist], k)
+    L2, tables, packs, words, sizes = _oracle_blocks([data], [hist], k)
     assert L2 == L
-    R = Q - 1
-    syms, finals = PL.decode_lanes(words, sizes, packs, k=k, L=L, R=R,
-                                   interpret=True)
-    got = np.concatenate([np.asarray(syms)[0].reshape(-1),
-                          np.asarray(finals)[0]])
-    assert got.tobytes() == data.tobytes()
-    syms_in = data[: R * k].reshape(1, R, k)
-    init_syms = data[R * k:].reshape(1, k)
-    We = PL.encode_w_bound(R, L)
-    kw, ks = PL.encode_lanes(syms_in, init_syms, encs, k=k, L=L, W=We,
-                             interpret=True)
-    assert (np.asarray(ks) == sizes).all()
-    assert PL.lane_merge(np.asarray(kw)[0], sizes[0]) == \
-        PL.lane_merge(words[0], sizes[0])
+    _check_decode([data], words, sizes, packs, k=k, L=L, R=Q - 1,
+                  interpret=True)
+    _check_encode([data], tables, words, sizes, k=k, L=L, interpret=True)
 
 
 def test_norm_entry_points_match_host_tables():
-    """encode_lanes_norm / decode_lanes_norm (device-built tables) produce
-    byte-identical streams to the host-table entry points / spec oracle."""
+    """encode_lanes_norm / decode_lanes_norm (tables built from the
+    normalized histograms) produce byte-identical streams to the
+    prebuilt-table entry points / spec oracle."""
     B, k, Q = 2, 256, 9
     datas, hists = _mk(21, B, k, Q, geo)
-    L, encs, packs, words, sizes = _oracle_blocks(datas, hists, k)
+    L, tables, packs, words, sizes = _oracle_blocks(datas, hists, k)
     R = Q - 1
     blocks = np.stack(datas)
     norm_tables = np.stack([np.asarray(h.table, np.int32) for h in hists])
     We = PL.encode_w_bound(R, L)
     w1, s1 = PL.encode_lanes_norm(blocks, norm_tables, k=k, L=L, W=We,
                                   interpret=True)
-    assert (s1 == sizes).all()
+    np.testing.assert_array_equal(s1, sizes)
     for b in range(B):
         assert PL.lane_merge(w1[b], s1[b]) == PL.lane_merge(words[b],
                                                             sizes[b])
-    syms, finals = PL.decode_lanes_norm(words, sizes, norm_tables, k=k,
-                                        L=L, R=R, interpret=True)
-    for b, data in enumerate(datas):
-        got = np.concatenate([np.asarray(syms)[b].reshape(-1),
-                              np.asarray(finals)[b]])
-        assert got.tobytes() == data.tobytes()
+    out = PL.decode_lanes_norm(words, sizes, norm_tables, k=k, L=L, R=R,
+                               interpret=True)
+    np.testing.assert_array_equal(out, blocks)
 
 
 def test_small_alphabet_fast_path_bit_exact():
-    """Small-alphabet encode fast path (every symbol < 128: the transform
-    table packs into ONE gather row per plane instead of two) must be
-    bit-identical to the full packing and to the spec oracle, through
-    both the host-table entry (explicit small_alpha=True) and the norm
-    entry (auto-detected from the norm tables)."""
+    """Small-alphabet inputs (every symbol < 128) through both the
+    prebuilt-table entry and the norm entry stay bit-identical to the
+    spec oracle."""
     B, k, Q = 2, 256, 9
     datas, hists = _mk(33, B, k, Q, narrow)
-    L, encs, packs, words, sizes = _oracle_blocks(datas, hists, k)
-    R = Q - 1
-    syms_in = np.stack([d[: R * k].reshape(R, k) for d in datas])
-    init_syms = np.stack([d[R * k:] for d in datas])
-    We = PL.encode_w_bound(R, L)
-    kw, ks = PL.encode_lanes(syms_in, init_syms, encs, k=k, L=L, W=We,
-                             interpret=True, small_alpha=True)
-    assert (np.asarray(ks) == sizes).all()
-    for b in range(B):
-        pad = np.zeros((We - words.shape[1], k), np.uint32)
-        expect = PL.lane_merge(np.concatenate([words[b], pad]), sizes[b])
-        assert PL.lane_merge(np.asarray(kw)[b], ks[b]) == expect
-    # norm entry point: detection is automatic (all counts >= 128 are 0)
+    L, tables, packs, words, sizes = _oracle_blocks(datas, hists, k)
+    _check_encode(datas, tables, words, sizes, k=k, L=L, interpret=True)
     blocks = np.stack(datas)
     norm_tables = np.stack([np.asarray(h.table, np.int32) for h in hists])
     assert (norm_tables[:, 128:] == 0).all()
+    We = PL.encode_w_bound(Q - 1, L)
     w1, s1 = PL.encode_lanes_norm(blocks, norm_tables, k=k, L=L, W=We,
                                   interpret=True)
-    assert (s1 == sizes).all()
+    np.testing.assert_array_equal(s1, sizes)
     for b in range(B):
-        assert PL.lane_merge(w1[b], s1[b]) == PL.lane_merge(
-            np.concatenate([words[b],
-                            np.zeros((We - words.shape[1], k), np.uint32)]),
-            sizes[b])
-
-
-@pytest.mark.parametrize("L", [5, 7, 8, 9, 10, 11, 13])
-def test_upacked_decode_rows_bit_exact(L):
-    """The u-packed small-alphabet decode layout (sym|u u16 pairs,
-    nb/base recomputed from the spread-source state u in-kernel —
-    decode_table_rows ``small``; ONE gather row at L=8, and since the
-    round-5 generalization any L whose max count fits 256, including
-    past the L=12 split-layout ceiling) decodes bit-exactly vs the
-    spec oracle and vs the split/flat layout, through decode_lanes
-    (auto-detected), both decode_lanes_norm table routes, and the
-    frame path."""
-    B, k, Q = 2, 256, 9
-    rng = np.random.default_rng(900 + L)
-    # eligibility needs max normalized count <= 256: a 6-symbol alphabet
-    # qualifies through L=10 (~2^L/6 each); higher logs need >= 2^L/256
-    # symbols, so widen to 101
-    nsym = 6 if L <= 10 else 101
-    datas = [rng.integers(0, nsym, k * Q, dtype=np.uint8)
-             for _ in range(B)]
-    hists = [Histogram(d).normalize(L) for d in datas]
-    assert all(h.log2 == L for h in hists)
-    _, encs, packs, words, sizes = _oracle_blocks(datas, hists, k)
-    R = Q - 1
-    # layout check: u-packed rows are strictly fewer (1 vs 2 at L <= 8,
-    # 2 vs 3 at L=9)
-    assert PL.upack_ok_packed(packs, L)
-    small_rows = PL.decode_table_rows(packs[0], L, small=True)
-    split_rows = PL.decode_table_rows(packs[0], L, small=False)
-    assert small_rows.shape[0] == max(1, (1 << L) >> 8)
-    assert small_rows.shape[0] < split_rows.shape[0]
-    # decode_lanes auto-detects small from the packed syms
-    syms, finals = PL.decode_lanes(words, sizes, packs, k=k, L=L, R=R,
-                                   interpret=True)
-    for b in range(B):
-        got = np.concatenate([syms[b].reshape(-1), finals[b]])
-        np.testing.assert_array_equal(got, datas[b])
-    norm_tables = np.stack([np.asarray(h.table, np.int32) for h in hists])
-    for ht in (True, False):
-        s2, f2 = PL.decode_lanes_norm(words, sizes, norm_tables, k=k,
-                                      L=L, R=R, interpret=True,
-                                      host_tables=ht)
-        np.testing.assert_array_equal(s2, np.asarray(syms))
-        np.testing.assert_array_equal(f2, np.asarray(finals))
-    # frame path end to end at the forced log
-    from entropy_coders_tpu import frame as F
-    data = np.concatenate(datas)
-    comp = F.compress(data, block_size=k * Q, k=k, table_log=L,
-                      lanes=True, interpret=True)
-    assert F.decompress(comp, interpret=True) == data.tobytes()
-
-
-def test_upack_majority_symbol_falls_back():
-    """At L=9 a symbol holding more than half the table forces nb=0
-    entries (u >= 512), so upack_ok must refuse and the split layout
-    must carry the batch — decode stays exact either way."""
-    k, Q, L = 256, 9, 9
-    rng = np.random.default_rng(77)
-    # ~70% one symbol: its normalized count exceeds 2^(L-1) = 256
-    data = np.where(rng.random(k * Q) < 0.7, 3,
-                    rng.integers(0, 6, k * Q)).astype(np.uint8)
-    hist = Histogram(data).normalize(L)
-    assert hist.log2 == L and int(np.max(hist.table)) > 256
-    _, encs, packs, words, sizes = _oracle_blocks([data], [hist], k)
-    assert not PL.upack_ok_packed(packs, L)
-    assert not PL.upack_ok(np.asarray(hist.table, np.int32)[None], L)
-    syms, finals = PL.decode_lanes(words, sizes, packs, k=k, L=L,
-                                   R=Q - 1, interpret=True)
-    got = np.concatenate([syms[0].reshape(-1), finals[0]])
-    np.testing.assert_array_equal(got, data)
+        assert PL.lane_merge(w1[b], s1[b]) == PL.lane_merge(words[b],
+                                                            sizes[b])
 
 
 @pytest.mark.parametrize("L", [11, 13])
 def test_small_alphabet_fast_path_high_logs(L):
-    """Small-alphabet packing at the mid (packed-word) and two-plane
-    transform layouts (L >= 11) stays bit-exact vs the spec oracle."""
+    """A small alphabet at the mid and high table logs stays bit-exact vs
+    the spec oracle."""
     k, Q = 128, 6
     rng = np.random.default_rng(100 + L)
     data = (rng.integers(0, 10, k * Q, dtype=np.uint16) ** 2 % 97).astype(
         np.uint8)  # alphabet well under 128
     hist = Histogram(data).normalize(L)
     assert hist.log2 == L
-    _, encs, packs, words, sizes = _oracle_blocks([data], [hist], k)
-    R = Q - 1
-    We = PL.encode_w_bound(R, L)
-    kw, ks = PL.encode_lanes(data[: R * k].reshape(1, R, k),
-                             data[R * k:].reshape(1, k), encs, k=k, L=L,
-                             W=We, interpret=True, small_alpha=True)
-    assert (np.asarray(ks) == sizes).all()
-    assert PL.lane_merge(np.asarray(kw)[0], sizes[0]) == \
-        PL.lane_merge(words[0], sizes[0])
+    _, tables, packs, words, sizes = _oracle_blocks([data], [hist], k)
+    _check_encode([data], tables, words, sizes, k=k, L=L, interpret=True)
 
 
 def test_norm_entry_table_routes_identical():
     """The two table-build routes of encode_lanes_norm/decode_lanes_norm
-    (host C++ build shipping packed rows vs the on-device XLA build)
-    must produce byte-identical streams and decodes."""
+    (host C++ build vs the on-device XLA build) must produce
+    byte-identical streams and decodes."""
     from entropy_coders_tpu import native
 
     if not native.available():
         pytest.skip("native codec unavailable")
     B, k, Q = 2, 256, 9
     datas, hists = _mk(55, B, k, Q, geo)
-    L, encs, packs, words, sizes = _oracle_blocks(datas, hists, k)
+    L, tables, packs, words, sizes = _oracle_blocks(datas, hists, k)
     R = Q - 1
     blocks = np.stack(datas)
     norm_tables = np.stack([np.asarray(h.table, np.int32) for h in hists])
@@ -323,50 +302,33 @@ def test_norm_entry_table_routes_identical():
                                   interpret=True, host_tables=True)
     wd, sd = PL.encode_lanes_norm(blocks, norm_tables, k=k, L=L, W=We,
                                   interpret=True, host_tables=False)
-    assert (np.asarray(sh) == np.asarray(sd)).all()
+    np.testing.assert_array_equal(sh, sd)
+    np.testing.assert_array_equal(sh, sizes)  # and == oracle
     for b in range(B):
-        assert PL.lane_merge(np.asarray(wh)[b], np.asarray(sh)[b]) == \
-            PL.lane_merge(np.asarray(wd)[b], np.asarray(sd)[b])
-        assert (np.asarray(sh)[b] == sizes[b]).all()  # and == oracle
+        assert PL.lane_merge(wh[b], sh[b]) == PL.lane_merge(wd[b], sd[b])
     for ht in (True, False):
-        syms, finals = PL.decode_lanes_norm(words, sizes, norm_tables,
-                                            k=k, L=L, R=R, interpret=True,
-                                            host_tables=ht)
-        for b, data in enumerate(datas):
-            got = np.concatenate([np.asarray(syms)[b].reshape(-1),
-                                  np.asarray(finals)[b]])
-            assert got.tobytes() == data.tobytes()
+        out = PL.decode_lanes_norm(words, sizes, norm_tables, k=k, L=L,
+                                   R=R, interpret=True, host_tables=ht)
+        np.testing.assert_array_equal(out, blocks)
 
 
-def test_packed_encode_path_bit_exact():
-    """The packed encode entry (_encode_call_packed: BlockSpecs over the
-    raw (B, R+1, S, 128) block reshape, F == 1 and R % E == 0) and the
-    host-table decode fast path must stay bit-exact vs the spec oracle
-    and the slicing/device routes."""
+def test_native_encode_lanes_matches_spec():
+    """The host C++ per-lane encoder (the reference the device kernels
+    are checked against on the card) writes the spec's lane streams."""
     from entropy_coders_tpu import native
 
     if not native.available():
         pytest.skip("native codec unavailable")
-    B, k, Q = 1, 1024, 10  # R = 9 divides E=3; F = 1 at this (B, k)
-    datas, hists = _mk(77, B, k, Q, geo)
-    L, encs, packs, words, sizes = _oracle_blocks(datas, hists, k)
-    R = Q - 1
-    assert R % 3 == 0
-    blocks = np.stack(datas)
-    norm_tables = np.stack([np.asarray(h.table, np.int32) for h in hists])
-    We = PL.encode_w_bound(R, L)
-    wh, sh = PL.encode_lanes_norm(blocks, norm_tables, k=k, L=L, W=We,
-                                  interpret=True, host_tables=True)
-    assert (np.asarray(sh) == sizes).all()
-    pad = np.zeros((We - words.shape[1], k), np.uint32)
-    expect = PL.lane_merge(np.concatenate([words[0], pad]), sizes[0])
-    assert PL.lane_merge(np.asarray(wh)[0], np.asarray(sh)[0]) == expect
-    syms, finals = PL.decode_lanes_norm(words, sizes, norm_tables, k=k,
-                                        L=L, R=R, interpret=True,
-                                        host_tables=True)
-    got = np.concatenate([np.asarray(syms)[0].reshape(-1),
-                          np.asarray(finals)[0]])
-    assert got.tobytes() == datas[0].tobytes()
+    B, k, Q = 2, 256, 9
+    datas, hists = _mk(5, B, k, Q, geo)
+    L, tables, packs, words, sizes = _oracle_blocks(datas, hists, k)
+    nt = np.stack([np.asarray(h.table, np.int32) for h in hists])
+    w, s = native.encode_lanes(np.stack(datas), nt, L, k,
+                               PL.encode_w_bound(Q - 1, L))
+    np.testing.assert_array_equal(s, sizes)
+    for b in range(B):
+        assert PL.lane_merge(w[b], s[b]) == PL.lane_merge(words[b],
+                                                          sizes[b])
 
 
 def test_pl_lane_is_reference_stream_native_decodable():
@@ -388,12 +350,12 @@ def test_pl_lane_is_reference_stream_native_decodable():
     We = PL.encode_w_bound(Q - 1, L)
     words, sizes = PL.encode_lanes_norm(blocks, nt[None], k=k, L=L, W=We,
                                         interpret=True)
-    payload = PL.lane_merge(np.asarray(words)[0], np.asarray(sizes)[0])
+    payload = PL.lane_merge(words[0], sizes[0])
     header = native.write_header(nt, L, int(np.flatnonzero(nt)[-1]) + 1)
-    nbytes = (np.asarray(sizes)[0] + 7) // 8
+    nbytes = (sizes[0] + 7) // 8
     offs = np.concatenate([[0], np.cumsum(nbytes)])
     for i in (0, 1, k // 2, k - 1):
-        sz = int(np.asarray(sizes)[0, i])
+        sz = int(sizes[0, i])
         lane = bytearray(payload[int(offs[i]): int(offs[i + 1])])
         if sz % 8:  # terminal marker bit at position sz
             lane[-1] |= 1 << (sz % 8)
@@ -416,22 +378,25 @@ def test_frame_pl_high_log_roundtrip():
     assert out == data.tobytes()
 
 
-def test_corrupt_stream_raises():
+@pytest.mark.parametrize("interpret", [True, False])
+def test_corrupt_stream_raises(interpret):
+    """A lane whose cursor does not drain to exactly 0 raises, through
+    the kernel's cursor output and the plain-JAX version's alike."""
     B, k, Q = 1, 256, 16
     datas, hists = _mk(3, B, k, Q, geo)
-    L, encs, packs, words, sizes = _oracle_blocks(datas, hists, k)
+    L, tables, packs, words, sizes = _oracle_blocks(datas, hists, k)
     words = words.copy()
     words[0, 0, :] ^= 0xFFFF  # clobber low words -> cursors misalign
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="not drained"):
         # some lane must fail to drain exactly
         PL.decode_lanes(words, sizes + 3, packs, k=k, L=L, R=Q - 1,
-                        interpret=True)
+                        interpret=interpret)
 
 
 def test_divergent_lanes_wide_fallback():
-    """Lanes with wildly different compressibility force the cursor
-    spread past the windowed refill/dump's REFILL_QW window, exercising
-    the full-scan fallback in both kernels (without it, this corrupts)."""
+    """Lanes with wildly different compressibility: the lanes of one
+    kernel program read and write words hundreds of rows apart, each
+    through its own cursor and window — both directions stay exact."""
     k, Q = 128, 480
     rng = np.random.default_rng(99)
     n = k * Q
@@ -442,23 +407,12 @@ def test_divergent_lanes_wide_fallback():
         np.array([0, 1], np.uint8), (Q, k // 2), p=[0.95, 0.05])
     per_lane[:, 1::2] = rng.integers(0, 256, (Q, k // 2), dtype=np.uint8)
     hist = Histogram(data).normalize(10)
-    L, encs, packs, words, sizes = _oracle_blocks([data], [hist], k)
-    # sanity: the spread really exceeds the narrow window
-    assert (sizes.max() - sizes.min()) > 32 * PL.REFILL_QW * 8
-    R = Q - 1
-    syms, finals = PL.decode_lanes(words, sizes, packs, k=k, L=L, R=R,
-                                   interpret=True)
-    got = np.concatenate([np.asarray(syms)[0].reshape(-1),
-                          np.asarray(finals)[0]])
-    assert got.tobytes() == data.tobytes()
-    syms_in = data[: R * k].reshape(1, R, k)
-    init_syms = data[R * k:].reshape(1, k)
-    We = PL.encode_w_bound(R, L)
-    kw, ks = PL.encode_lanes(syms_in, init_syms, encs, k=k, L=L, W=We,
-                             interpret=True)
-    assert (np.asarray(ks) == sizes).all()
-    assert PL.lane_merge(np.asarray(kw)[0], sizes[0]) == \
-        PL.lane_merge(words[0], sizes[0])
+    L, tables, packs, words, sizes = _oracle_blocks([data], [hist], k)
+    # sanity: the cursors really spread over > 32 word rows
+    assert (sizes.max() - sizes.min()) > 32 * 32 * 3
+    _check_decode([data], words, sizes, packs, k=k, L=L, R=Q - 1,
+                  interpret=True)
+    _check_encode([data], tables, words, sizes, k=k, L=L, interpret=True)
 
 
 def test_lane_bits_split_merge_roundtrip():
@@ -615,69 +569,3 @@ def test_bits_all_zero_sizes_fallback():
         assert native.lane_merge_bits(words, sizes) == b""
 
 
-def test_exact_and_masked_epoch_paths_agree():
-    """The kernels compile a specialized epoch body when R % E == 0 (no
-    per-round tail masking — the shipping config's case). Pin it against
-    the masked-tail body: the same block coded with E=3 (R=9, exact) and
-    E=2 (masked) must produce identical wire bytes, and both must decode;
-    the oracle stream is the ground truth for both."""
-    B, k, Q = 2, 256, 10  # R = 9: divisible by 3 (exact), not by 2
-    datas, hists = _mk(23, B, k, Q, geo)
-    L, encs, packs, words, sizes = _oracle_blocks(datas, hists, k)
-    R = Q - 1
-    assert R % 3 == 0 and R % 2 == 1 and 3 * L <= 32
-
-    syms_in = np.stack([d[: R * k].reshape(R, k) for d in datas])
-    init_syms = np.stack([d[R * k:] for d in datas])
-    We = PL.encode_w_bound(R, L)
-    merged = []
-    for e_rounds in (3, 2):
-        kw, ks = PL.encode_lanes(syms_in, init_syms, encs, k=k, L=L, W=We,
-                                 interpret=True, e_rounds=e_rounds)
-        assert (ks == sizes).all()
-        merged.append([PL.lane_merge(kw[b], ks[b]) for b in range(B)])
-
-        syms, finals = PL.decode_lanes(words, sizes, packs, k=k, L=L, R=R,
-                                       interpret=True, e_rounds=e_rounds)
-        for b, data in enumerate(datas):
-            got = np.concatenate([syms[b].reshape(-1), finals[b]])
-            assert got.tobytes() == data.tobytes()
-    assert merged[0] == merged[1]
-
-
-def test_packed_encode_back_aligned_epoch_bit_exact():
-    """The packed encode entry accepts unrolls that do NOT divide R by
-    reading the raw (R+1)-row array back-aligned — chunk G-1 spills one
-    round into the init row, masked via ``pad_back`` (round 5; the
-    E=4-at-L=8 experiment that motivated it measured SLOWER and E=3
-    stays the default, but the capability is load-bearing for the
-    ``e_rounds`` knob). Pin both schedules against the spec oracle."""
-    import jax.numpy as jnp
-
-    B, k, Q = 2, 256, 16  # R = 15: % 3 == 0 (exact), % 4 == 3 (pad 1)
-    rng = np.random.default_rng(41)
-    datas = [(geo(rng, k * Q) % 101) for _ in range(B)]  # alphabet
-    hists = [Histogram(d).normalize(8) for d in datas]     # fits L=8
-    L, encs, packs, words, sizes = _oracle_blocks(datas, hists, k)
-    assert L == 8
-    R, S = Q - 1, k // 128
-    We = PL.encode_w_bound(R, L)
-    small = not any(np.asarray(h.table)[128:].any() for h in hists)
-    symt, stt = zip(*(PL.pack_enc_table_rows(t, tb, fs, L, small)
-                      for t, tb, fs in encs))
-    blocks4 = jnp.asarray(np.stack(datas).reshape(B, Q, S, 128))
-    a_symt = jnp.asarray(np.stack(symt)[:, :, None, :])
-    a_stt = jnp.asarray(np.stack(stt)[:, :, None, :])
-    expect = [PL.lane_merge(
-        np.concatenate([words[b], np.zeros((We - words.shape[1], k),
-                                           np.uint32)]), sizes[b])
-        for b in range(B)]
-    for e_rounds in (3, 4):
-        w, s = PL._encode_call_packed(blocks4, a_symt, a_stt, S=S, W=We,
-                                      L=L, R=R, interpret=True,
-                                      e_rounds=e_rounds)
-        s = np.asarray(s).reshape(B, k)
-        assert (s == sizes).all(), e_rounds
-        w = np.asarray(w).reshape(B, We, k).view(np.uint32)
-        for b in range(B):
-            assert PL.lane_merge(w[b], s[b]) == expect[b], (e_rounds, b)

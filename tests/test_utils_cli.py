@@ -64,7 +64,7 @@ def test_cli_roundtrip(tmp_path):
     fc = tmp_path / "c.fset"
     fout = tmp_path / "out.bin"
     fin.write_bytes(data)
-    env = dict(os.environ, JAX_PLATFORMS="cpu", ECT_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run(
         [sys.executable, "-m", "entropy_coders_tpu", "compress", str(fin),
@@ -92,7 +92,7 @@ def test_cli_fast_budget_table_log(tmp_path):
     fc = tmp_path / "c.fset"
     fout = tmp_path / "out.bin"
     fin.write_bytes(data)
-    env = dict(os.environ, JAX_PLATFORMS="cpu", ECT_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run(
         [sys.executable, "-m", "entropy_coders_tpu", "compress", str(fin),
